@@ -64,3 +64,10 @@ def eight_devices():
     if len(cpu) >= 8:
         return cpu[:8]
     pytest.skip("needs 8 devices (run via scripts/test_cpu.sh)")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "requires_cuda: needs a CUDA card and nvcc; skips on a host without them",
+    )

@@ -1,0 +1,62 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``requires_cuda``: without a CUDA device they skip (the decision is
+taken inside the fixture, never at import). On a machine with the card:
+``python -m pytest -m requires_cuda tests/test_torch_kernels_cuda.py``.
+This file imports no JAX, so it runs where only torch is installed."""
+
+import numpy as np
+import pytest
+import torch
+
+from ivosw_tpu_torch.kernels.roi_crop import (
+    BF16_CROP_ATOL,
+    F32_CROP_ATOL,
+    roi_crop_pairs_fusedbox,
+    roi_crop_pairs_fusedbox_reference,
+)
+from torch_port_cases import edge_case_probs, frames_like
+
+pytestmark = pytest.mark.requires_cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ivosw_tpu_torch.device import resolve_device
+
+    return resolve_device(None)
+
+
+@pytest.mark.parametrize("h,w,s", [(48, 64, 64), (192, 256, 256), (480, 854, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fusedbox_kernel_matches_plain(cuda, h, w, s, dtype):
+    t, o = 2, 5  # background plane + 4 objects, read through obj_offset=1
+    probs = torch.from_numpy(edge_case_probs(t, o, h, w, seed=h)).to(cuda)
+    frames = torch.from_numpy(frames_like(t, h, w)).to(cuda)
+    before = roi_crop_pairs_fusedbox.launches
+    out, boxes = roi_crop_pairs_fusedbox(frames, probs, s, dtype, obj_offset=1,
+                                         return_boxes=True)
+    ref, ref_boxes = roi_crop_pairs_fusedbox_reference(frames, probs, s, dtype,
+                                                       obj_offset=1, return_boxes=True)
+    torch.cuda.synchronize()
+    assert roi_crop_pairs_fusedbox.launches == before + 1
+    assert out.shape == (t * (o - 1), s, s, 4) and out.dtype == dtype
+    assert torch.equal(boxes, ref_boxes)
+    atol = F32_CROP_ATOL if dtype == torch.float32 else BF16_CROP_ATOL
+    assert float((out.float() - ref.float()).abs().max()) <= atol
+
+
+def test_fusedbox_kernel_rejects_bad_inputs(cuda):
+    frames = torch.zeros((2, 16, 16, 3), device=cuda)
+    probs = torch.zeros((2, 2, 16, 16), device=cuda)
+    with pytest.raises(TypeError):
+        roi_crop_pairs_fusedbox(frames.double(), probs, 8)
+    with pytest.raises(ValueError):
+        roi_crop_pairs_fusedbox(frames, probs.transpose(2, 3), 8)
+    with pytest.raises(ValueError):
+        roi_crop_pairs_fusedbox(frames, probs.cpu(), 8)
+    with pytest.raises(ValueError):
+        roi_crop_pairs_fusedbox(frames, probs[:1], 8)
+    assert np.isfinite(roi_crop_pairs_fusedbox(frames, probs, 8).float().cpu().numpy()).all()
