@@ -9,11 +9,13 @@ with its own seconds:
 
 0. device: ``torch.cuda.get_device_name`` and nvidia-smi's name/power limit;
 1. build: every CUDA source of the port, one ``nvcc`` each, in parallel;
-2. kernel: the fused-box ROI crop kernel against its plain torch version at
-   the scoring path's shape (T=64 frames, O=3 objects, 480×854, 256² bf16
-   crops) on seeded prob maps with empty, tiny, border-touching and
-   out-of-range masks: box mismatches (must be 0), crop error (bf16 bound
-   and float32 bound), kernel / plain / library / bound times;
+2. kernel: the fused-box ROI crop kernel against its plain torch version
+   on seeded prob maps with empty, tiny, border-touching and out-of-range
+   masks, O=3 objects (+ background plane, object offset 1), 480×854, 256²
+   bf16 crops: box mismatches (must be 0), crop error (bf16 bound and
+   float32 bound), kernel / plain / library / bound times. Once at the
+   shape of one launch on the main path (T=32 frames, the scoring chunk;
+   these numbers fill the kernel table) and once on the whole T=64 clip;
 3. small: the wild/ours loop on a 48×64 clip (T=8, O=2, 3 rounds) on the
    card (crop kernel) and on the host (plain crop), AssessNet in float32:
    frame picks and J&F curves must be identical and predicted qualities
@@ -41,7 +43,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-T, O, H, W, S = 64, 3, 480, 854, 256
+T_CLIP, O, H, W, S = 64, 3, 480, 854, 256  # the slice's clip
 ROUNDS = 4
 BLOB = 128  # distractor blob side of the demo clip at 480p
 SEED = 0
@@ -57,14 +59,10 @@ def log_phase(name: str, tic: float, **fields) -> None:
 
 
 def card_bandwidth(name: str) -> float:
-    """Device memory bytes/s from NVIDIA's data sheets."""
-    if "H200" in name:
-        return 4.8e12
-    if "H100" in name and "PCIe" in name:
-        return 2.0e12
-    if "H100" in name and "NVL" in name:
-        return 3.9e12
-    return 3.35e12  # H100 SXM
+    """Device memory bytes/s from NVIDIA's data sheet (H100 SXM, HBM3)."""
+    if "H100" in name and "HBM3" in name:
+        return 3.35e12
+    raise ValueError(f"no memory rate known for {name!r}: add its data-sheet value")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -82,7 +80,7 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def make_probs(torch, device):
+def make_probs(torch, device, T):
     """[T, O+1, H, W] float32 prob maps with background plane 0: per pair a
     seeded case among empty, single pixel, tiny blob, border-touching box,
     full frame, large box, scattered noise."""
@@ -112,7 +110,7 @@ def make_probs(torch, device):
     return probs
 
 
-def frame_bytes_needed(boxes):
+def frame_bytes_needed(boxes, T):
     """Bytes of frame pixels the crops' non-zero taps touch (union per
     frame over its objects), read once: what this run's data needs."""
     from ivosw_tpu_torch.ops.roi import _interp_matrix
@@ -123,7 +121,7 @@ def frame_bytes_needed(boxes):
     return int(pix.sum()) * 3 * 4
 
 
-def phase_kernel(torch, dev, kinfo):
+def phase_kernel(torch, dev, kinfo, T):
     from ivosw_tpu_torch.kernels.roi_crop import (
         BF16_CROP_ATOL,
         F32_CROP_ATOL,
@@ -135,7 +133,7 @@ def phase_kernel(torch, dev, kinfo):
     tic = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     frames = torch.rand((T, H, W, 3), generator=g, device=dev)
-    probs = make_probs(torch, dev)
+    probs = make_probs(torch, dev, T)
     kw = dict(obj_offset=1, num_objects=O)
 
     errs = {}
@@ -193,7 +191,7 @@ def phase_kernel(torch, dev, kinfo):
     _, boxes = roi_crop_pairs_fusedbox(frames, probs, S, torch.bfloat16, return_boxes=True, **kw)
     bw = card_bandwidth(kinfo["name"])
     bytes_probs = T * O * H * W * 4  # every pixel of each object plane
-    bytes_frames = frame_bytes_needed(boxes)
+    bytes_frames = frame_bytes_needed(boxes, T)
     bytes_out = T * O * S * S * 4 * 2 + T * O * 4 * 4
     flops = T * O * S * S * 4 * 2 * 4  # 4 taps × 4 channels, multiply + add
     bytes_total = bytes_probs + bytes_frames + bytes_out
@@ -306,7 +304,7 @@ def phase_slice(torch, dev, kinfo):
     from ivosw_tpu_torch.models.vos.fake import FakeVOS
 
     tic = time.perf_counter()
-    spec = DemoSpec(h=H, w=W, num_frames=T, num_objects=O, blob=BLOB)
+    spec = DemoSpec(h=H, w=W, num_frames=T_CLIP, num_objects=O, blob=BLOB)
     registry = demo_training_registry(n_clips=1, seed=SEED, spec=spec)
     cfg = Config(phase="eval", setting="wild", method="ours", vos="fake",
                  dataset="demo", seed=SEED)
@@ -322,13 +320,13 @@ def phase_slice(torch, dev, kinfo):
     peak_bytes = torch.cuda.max_memory_allocated(dev)
 
     rounds = len(summary["report"])
-    expected = rounds * math.ceil(T / FRAME_CHUNK)
+    expected = rounds * math.ceil(T_CLIP / FRAME_CHUNK)
     curve = summary["curve"]["J_AND_F"]
     q = np.asarray(qualities)
     if launches != expected or launches == 0:
         raise AssertionError(f"crop kernel launched {launches}x, expected {expected}")
-    if q.shape != (rounds, T) or not np.isfinite(q).all():
-        raise AssertionError(f"predicted qualities {q.shape} not finite [rounds, T]")
+    if q.shape != (rounds, T_CLIP) or not np.isfinite(q).all():
+        raise AssertionError(f"predicted qualities {q.shape} not finite [rounds, T_CLIP]")
     if len(curve) != rounds or not all(0.0 <= v <= 1.0 for v in curve):
         raise AssertionError(f"J&F curve {curve} malformed for {rounds} rounds")
 
@@ -336,7 +334,7 @@ def phase_slice(torch, dev, kinfo):
     name = registry.subset("train")[0]
     adapter = FakeVOS(registry)
     state = adapter.begin_sequence(registry.load_images(name), O, sequence=name)
-    _, all_p, _ = adapter.segment(state, {"scribbles": [[]] * T}, 0, 1)
+    _, all_p, _ = adapter.segment(state, {"scribbles": [[]] * T_CLIP}, 0, 1)
     frames = torch.as_tensor(registry.load_images(name), device=dev)
     qa_ms = []
     for _ in range(3):
@@ -363,27 +361,39 @@ def phase_slice(torch, dev, kinfo):
 
 def profile_qa_round(torch, fn, wall_ms: float, top: int = 10):
     """torch.profiler over one QA round (after a profiled warm-up round that
-    pays the tracer's start-up): device time of each kernel and copy, their
-    sum, and the idle share of ``wall_ms`` (an unprofiled round's time).
-    One stream runs the round, so device activities do not overlap."""
+    pays the tracer's start-up): device time of each kernel and copy, the
+    copies' (memcpy / memset) sum apart from the compute kernels' sum, and
+    the share of the profiled round's own wall time in which no compute
+    kernel ran, and in which neither a kernel nor a copy ran. ``wall_ms``
+    (an unprofiled round's time) is reported beside it: the pageable
+    upload's rate varies from round to round. One stream runs the round,
+    so device activities do not overlap."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
     device = [
         e for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
         and not e.key.startswith("Activity Buffer")
     ]
     device.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    device_ms = sum(e.self_device_time_total for e in device) / 1e3
+    is_copy = lambda e: e.key.startswith(("Memcpy", "Memset"))
+    copy_ms = sum(e.self_device_time_total for e in device if is_copy(e)) / 1e3
+    compute_ms = sum(e.self_device_time_total for e in device if not is_copy(e)) / 1e3
     return {
         "wall_ms": wall_ms,
-        "device_ms": device_ms,
-        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "profiled_wall_ms": profiled_ms,
+        "compute_ms": compute_ms,
+        "copy_ms": copy_ms,
+        "compute_idle_share": 1.0 - compute_ms / profiled_ms,
+        "device_idle_share": 1.0 - (compute_ms + copy_ms) / profiled_ms,
         "top": [
             {"name": e.key[:90], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
             for e in device[:top]
@@ -420,7 +430,10 @@ def main() -> int:
     libs = _build.build_all()
     log_phase("build", tic, libraries=sorted(p.name for p in libs.values()))
 
-    stats = phase_kernel(torch, dev, kinfo)
+    from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK
+
+    stats = phase_kernel(torch, dev, kinfo, FRAME_CHUNK)  # one main-path launch
+    phase_kernel(torch, dev, kinfo, T_CLIP)
     phase_small(torch, dev)
     launches = phase_slice(torch, dev, kinfo)
 

@@ -19,7 +19,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → ``cuda`` (raises without a GPU); anything else as given."""
+    """``None`` → the current CUDA device (raises without a GPU); anything
+    else as given. A CUDA device always carries its index, so it compares
+    equal to the ``.device`` of the tensors placed on it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -28,6 +30,19 @@ def resolve_device(device=None) -> torch.device:
         device = "cuda"
     device = torch.device(device)
     if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def check_on_device(device: torch.device, **named) -> None:
+    """Raise unless every named module (its parameters) or tensor lies on
+    ``device``; host arrays and ``None`` pass. Nothing is moved: a model
+    left on another device would otherwise run (and be timed) there."""
+    for name, x in named.items():
+        if isinstance(x, torch.nn.Module):
+            x = next(x.parameters(), None)
+        if isinstance(x, torch.Tensor) and x.device != device:
+            raise ValueError(f"{name} is on {x.device}, expected {device}")

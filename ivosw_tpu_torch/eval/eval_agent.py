@@ -27,7 +27,7 @@ import torch
 
 from ivosw_tpu_torch.core.config import Config
 from ivosw_tpu_torch.data.scribbles import annotated_frames
-from ivosw_tpu_torch.device import resolve_device
+from ivosw_tpu_torch.device import check_on_device, resolve_device
 from ivosw_tpu_torch.interact.recommend import recommend_frame
 from ivosw_tpu_torch.interact.robot import ScribbleRobot, robot_from_config
 from ivosw_tpu_torch.interact.session import InteractiveSession
@@ -87,10 +87,12 @@ def evaluate(
     """Run the full interactive evaluation; returns the summary dict.
 
     ``assess_net``: the AssessNet scoring the wild setting's worst/ours
-    methods, already on ``device``; frames go to ``device`` once per
-    sequence. ``device=None`` means CUDA (raises without a GPU).
+    methods, already on ``device`` (as is the agent's Brain; either on
+    another device raises); frames go to ``device`` once per sequence.
+    ``device=None`` means CUDA (raises without a GPU).
     ``samples``: optional explicit (sequence, scribble_idx) list."""
     device = resolve_device(device)
+    check_on_device(device, assess_net=assess_net, agent=getattr(agent, "brain", None))
     if getattr(cfg.assess_net, "bf16_inputs", False):
         raise NotImplementedError(
             "assess_net.bf16_inputs: the crop kernel reads float32 frames "

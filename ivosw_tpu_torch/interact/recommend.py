@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ivosw_tpu_torch.device import check_on_device
 from ivosw_tpu_torch.models.assess import score_clip
 
 FRAME_CHUNK = 32
@@ -107,9 +108,11 @@ def predict_clip_quality(
     Returns (per-frame mean quality [T], per-object scores [T, n_objects]).
 
     chunk: frames per scoring block; None → FRAME_CHUNK
-    (cfg.assess_net.score_chunk)."""
+    (cfg.assess_net.score_chunk). A tensor argument on another device than
+    the net's raises rather than being copied across."""
     chunk = int(chunk) if chunk else FRAME_CHUNK
     device = next(assess_net.parameters()).device
+    check_on_device(device, all_F=all_F, all_P=all_P)
     all_F = torch.as_tensor(all_F, dtype=torch.float32, device=device)
     all_P = torch.as_tensor(all_P, dtype=torch.float32, device=device)
     obj_valid = torch.ones((n_objects,), dtype=torch.float32, device=device)

@@ -118,7 +118,9 @@ def score_clip(
     frames [T, H, W, 3] float32; probs [T, P, H, W] float32 whose planes
     ``obj_offset .. obj_offset+O-1`` are the objects (O = len(obj_valid));
     obj_valid [O] 1/0 zeroes padded object slots. ``chunk`` < T crops and
-    encodes chunk-frame slices one after the other."""
+    encodes chunk-frame slices one after the other; it mirrors the JAX
+    package's signature and only tests pass it (the scoring path,
+    ``predict_clip_quality``, chunks and pads the tail itself)."""
     t = probs.shape[0]
     if chunk and t > chunk:
         return torch.cat([

@@ -85,6 +85,36 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_models_on_another_device_raise():
+    """evaluate and predict_clip_quality never copy across devices: a net,
+    a Brain or a frame tensor on another device than the run's raises (the
+    round would otherwise run, and be timed, on the host)."""
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.data.registry import SequenceRegistry
+    from ivosw_tpu_torch.eval.eval_agent import evaluate
+    from ivosw_tpu_torch.interact.recommend import predict_clip_quality
+    from ivosw_tpu_torch.models.agent import Agent
+    from ivosw_tpu_torch.models.assess import AssessNet
+    from ivosw_tpu_torch.models.vos.fake import FakeVOS
+
+    cfg = Config(phase="eval", setting="wild", method="ours", vos="fake", dataset="demo")
+    reg = SequenceRegistry.synthetic(["a"], num_frames=4)
+    with torch.device("meta"):
+        meta_net = AssessNet(fold=True)
+    with pytest.raises(ValueError, match="assess_net is on meta"):
+        evaluate(cfg, reg, FakeVOS(reg), assess_net=meta_net, device="cpu")
+    with pytest.raises(ValueError, match="agent is on cpu"):
+        evaluate(cfg, reg, FakeVOS(reg), agent=Agent(cfg, device="cpu"), device="meta")
+    frames = np.zeros((4, 8, 8, 3), np.float32)
+    probs = np.zeros((4, 2, 8, 8), np.float32)
+    with pytest.raises(ValueError, match="all_F is on cpu"):
+        predict_clip_quality(meta_net, torch.from_numpy(frames), probs, 1)
+    with pytest.raises(ValueError, match="all_P is on cpu"):
+        predict_clip_quality(meta_net, frames, torch.from_numpy(probs), 1)
+
+
 def test_kernel_wrapper_refuses_other_devices():
     """On the CPU the wrapper computes the plain version; a tensor on any
     other device raises instead of falling back."""
