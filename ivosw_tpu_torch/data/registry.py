@@ -59,6 +59,14 @@ class SequenceRegistry:
         """Frames [T, H, W, 3] float32 in [0, 1], RGB."""
         return self._synthetic[name][0]
 
+    def load_image_frame(self, name: str, frame: int) -> np.ndarray:
+        """ONE frame [H, W, 3] float32 (per-sample loaders, the QA dataset)."""
+        return self._synthetic[name][0][frame]
+
+    def load_annotation_frame(self, name: str, frame: int) -> np.ndarray:
+        """ONE annotation [H, W] uint8."""
+        return self._synthetic[name][1][frame]
+
     # ------------------------------------------------------- constructors --
     @classmethod
     def synthetic(

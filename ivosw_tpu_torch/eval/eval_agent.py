@@ -240,6 +240,16 @@ def evaluate(
     return summary
 
 
+def load_weights(module: torch.nn.Module, ckpt_dir: str, name: str) -> bool:
+    """Load ``{ckpt_dir}/{name}`` (a state dict saved with ``torch.save``)
+    into ``module`` when the file exists; returns whether it did."""
+    path = os.path.join(ckpt_dir, name)
+    if not os.path.exists(path):
+        return False
+    module.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    return True
+
+
 def build_and_evaluate(cfg: Config, overwrite: bool = False, device=None):
     """Config-driven wiring: registry + backbone + (agent, AssessNet)."""
     if cfg.eval_dp_shards > 1 or cfg.eval_sp_shards > 1:
@@ -255,19 +265,14 @@ def build_and_evaluate(cfg: Config, overwrite: bool = False, device=None):
     device = resolve_device(device)
     registry = registry_from_config(cfg)
 
-    def load_into(module, name):
-        path = os.path.join(cfg.ckpt_dir, name)
-        if os.path.exists(path):
-            module.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
-
     agent = None
     assess_net = None
     if cfg.method == "ours":
         agent = Agent(cfg, device=device)
-        load_into(agent.brain, "agent.pt")
+        load_weights(agent.brain, cfg.ckpt_dir, "agent.pt")
     if cfg.setting == "wild" and cfg.method in ("ours", "worst"):
         assess_net = init_assess_net(cfg.seed)
-        load_into(assess_net, "assess_net.pt")
+        load_weights(assess_net, cfg.ckpt_dir, "assess_net.pt")
         if cfg.assess_net.fold_inference:
             folded = AssessNet(fold=True)
             folded.load_state_dict(fold_assess_variables(assess_net.state_dict()))

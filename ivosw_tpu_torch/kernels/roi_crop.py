@@ -1,11 +1,13 @@
-"""Fused-box ROI crop of every (frame, object) pair: CUDA kernel + plain version.
+"""ROI crop kernels for Hopper and their plain versions.
 
-Counterpart of ``roi_crop_pairs_pallas_fusedbox`` and
-``roi_crop_pairs_from_probs`` in ``ivosw_tpu/kernels/roi_pallas.py``. For
-each pair (t, o) the ROI box comes from ``probs[t, obj_offset + o] > 0.5``
-(:func:`ivosw_tpu_torch.ops.roi.mask_to_yxhw` rules) and the S×S bilinear
-crop of the frame's 3 channels and of that prob plane is returned as NHWC
-``[T·O, S, S, 4]``.
+Two CUDA kernels, each beside its plain torch version:
+
+Fused-box pair crop, counterpart of ``roi_crop_pairs_pallas_fusedbox`` and
+``roi_crop_pairs_from_probs`` in ``ivosw_tpu/kernels/roi_pallas.py`` (the
+scoring path). For each pair (t, o) the ROI box comes from
+``probs[t, obj_offset + o] > 0.5`` (:func:`ivosw_tpu_torch.ops.roi.mask_to_yxhw`
+rules) and the S×S bilinear crop of the frame's 3 channels and of that prob
+plane is returned as NHWC ``[T·O, S, S, 4]``.
 
 - :func:`roi_crop_pairs_fusedbox` launches the kernel of
   ``csrc/roi_crop_fusedbox.cu`` for CUDA tensors and counts each launch in
@@ -22,6 +24,23 @@ version rounds five times (inputs, both matrices, the intermediate, the
 output); for values in [0, 1] each rounding moves a value by at most half
 an ulp, 2⁻⁹, and the output rounding at the top of the range by up to 2⁻⁸,
 so the two differ by at most :data:`BF16_CROP_ATOL` = 2⁻⁶.
+
+Crop with given boxes, counterpart of ``roi_crop_pallas`` and
+``roi_crop_best`` (``roi_pallas.py:67``, ``:233``; the AssessNet training
+path): ``[B, H, W, C]`` float32 images and ``[B, 4]`` yxhw boxes →
+``[B, S, S, C]`` float32.
+
+- :func:`roi_crop` launches the kernel of ``csrc/roi_crop.cu`` for CUDA
+  tensors and counts each launch in ``roi_crop.launches``; CPU tensors go to
+  the plain version. Any other device raises, and so does an input that
+  requires a gradient: like the TPU kernel, the kernel has no backward.
+- :func:`roi_crop_reference` is the plain version, the float32 einsum of
+  :func:`ivosw_tpu_torch.ops.roi.roi_crop` (``ivosw_tpu/ops/roi.py:109``).
+- :func:`roi_crop_best` is the dispatch ``assess_forward`` calls.
+
+The kernel sums the same two non-zero taps per row and column in float32,
+so it agrees with the plain version to summation order
+(:data:`F32_CROP_ATOL`).
 """
 
 from __future__ import annotations
@@ -31,12 +50,14 @@ import ctypes
 import torch
 
 from ivosw_tpu_torch.ops.roi import _interp_matrix, mask_to_yxhw, yxhw_to_minmax
+from ivosw_tpu_torch.ops.roi import roi_crop as _roi_crop_einsum  # the plain crop
 
 ROI_S = 256
 BF16_CROP_ATOL = 2.0**-6
 F32_CROP_ATOL = 1e-5
 
 _SOURCE = "roi_crop_fusedbox"
+_CROP_SOURCE = "roi_crop"
 
 
 def _selected_planes(probs, obj_offset, num_objects):
@@ -100,9 +121,17 @@ def _bind(lib: ctypes.CDLL):
             ptr,  # stream
         ]
         fn.restype = c_int
-        lib.ivosw_cuda_error_string.argtypes = [c_int]
-        lib.ivosw_cuda_error_string.restype = ctypes.c_char_p
     return fn
+
+
+def _check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise when a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        lib.ivosw_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.ivosw_cuda_error_string.restype = ctypes.c_char_p
+        msg = lib.ivosw_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}: {msg}")
 
 
 def roi_crop_pairs_fusedbox(
@@ -151,7 +180,8 @@ def roi_crop_pairs_fusedbox(
 
     from ivosw_tpu_torch.kernels import _build
 
-    fn = _bind(_build.load(_SOURCE))
+    lib = _build.load(_SOURCE)
+    fn = _bind(lib)
     out = torch.empty((t * o, out_size, out_size, 4), dtype=dtype, device=frames.device)
     boxes = torch.empty((t * o, 4), dtype=torch.float32, device=frames.device)
     stream = torch.cuda.current_stream(frames.device).cuda_stream
@@ -163,9 +193,7 @@ def roi_crop_pairs_fusedbox(
         boxes.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
         stream,
     )
-    if err != 0:
-        msg = _build.load(_SOURCE).ivosw_cuda_error_string(err).decode()
-        raise RuntimeError(f"roi_crop_pairs_fusedbox launch failed: CUDA error {err}: {msg}")
+    _check_launch(lib, err, "roi_crop_pairs_fusedbox")
     roi_crop_pairs_fusedbox.launches += 1
     return (out, boxes) if return_boxes else out
 
@@ -184,3 +212,74 @@ def roi_crop_pairs_from_probs(
         frames, probs, out_size, dtype, obj_offset=obj_offset, num_objects=num_objects
     )
     return out[..., :3], out[..., 3:]
+
+
+# --------------------------------------------------- crop with given boxes --
+def roi_crop_reference(images: torch.Tensor, yxhw: torch.Tensor, out_size: int = ROI_S):
+    """Plain torch version of :func:`roi_crop` (any device): the separable
+    float32 einsum with dense interpolation matrices."""
+    return _roi_crop_einsum(images.float(), yxhw.float(), out_size, torch.float32)
+
+
+def _bind_crop(lib: ctypes.CDLL):
+    fn = lib.ivosw_roi_crop
+    if fn.argtypes is None:
+        c_int, ptr = ctypes.c_int, ctypes.c_void_p
+        fn.argtypes = [
+            ptr,  # images
+            c_int, c_int, c_int, c_int, c_int,  # B, H, W, C, S
+            ptr, ptr,  # boxes, out
+            ptr,  # stream
+        ]
+        fn.restype = c_int
+    return fn
+
+
+def roi_crop(images: torch.Tensor, yxhw: torch.Tensor, out_size: int = ROI_S) -> torch.Tensor:
+    """Bilinear crop of every image inside its box → [B, S, S, C] float32.
+
+    images [B, H, W, C] float32 and yxhw [B, 4] float32 (y, x, h, w) boxes,
+    both contiguous and on one device. The boxes become (ymin, ymax, xmin,
+    xmax) here, outside the kernel, as ``roi_pallas.py:72-73`` does."""
+    if images.requires_grad or yxhw.requires_grad:
+        raise ValueError("roi_crop has no backward: pass inputs that do not require grad")
+    if images.device.type == "cpu" and yxhw.device.type == "cpu":
+        return roi_crop_reference(images, yxhw, out_size)
+    if images.device.type != "cuda" or yxhw.device != images.device:
+        raise ValueError(
+            f"images on {images.device} and boxes on {yxhw.device}: "
+            "both must be on one CUDA device (or both on the CPU)"
+        )
+    if images.dtype != torch.float32 or yxhw.dtype != torch.float32:
+        raise TypeError(f"need float32 images/boxes, got {images.dtype}/{yxhw.dtype}")
+    if images.dim() != 4 or tuple(yxhw.shape) != (images.shape[0], 4):
+        raise ValueError(f"need images [B,H,W,C] and yxhw [B,4]; got "
+                         f"{tuple(images.shape)}, {tuple(yxhw.shape)}")
+    if not images.is_contiguous():
+        raise ValueError("images must be contiguous")
+    if out_size < 2:
+        raise ValueError(f"out_size must be >= 2, got {out_size}")
+    b, h, w, c = images.shape
+    boxes = torch.stack(yxhw_to_minmax(yxhw), dim=1).contiguous()
+
+    from ivosw_tpu_torch.kernels import _build
+
+    lib = _build.load(_CROP_SOURCE)
+    out = torch.empty((b, out_size, out_size, c), dtype=torch.float32, device=images.device)
+    stream = torch.cuda.current_stream(images.device).cuda_stream
+    err = _bind_crop(lib)(
+        images.data_ptr(), b, h, w, c, out_size, boxes.data_ptr(), out.data_ptr(), stream
+    )
+    _check_launch(lib, err, "roi_crop")
+    roi_crop.launches += 1
+    return out
+
+
+roi_crop.launches = 0
+
+
+def roi_crop_best(images: torch.Tensor, yxhw: torch.Tensor, out_size: int = ROI_S) -> torch.Tensor:
+    """The crop ``assess_forward`` calls: the kernel for CUDA tensors, the
+    plain version for CPU ones; computed in float32 and returned in the
+    images' dtype, as ``roi_pallas.py:247`` casts."""
+    return roi_crop(images.float().contiguous(), yxhw.float(), out_size).to(images.dtype)

@@ -3,8 +3,10 @@
 Counterpart of ``ivosw_tpu/models/assess.py``: 256×256 ROI crops of
 (image, prob map) → ResNet-50 trunk whose stem fuses a 1-channel prob conv
 into conv1 (``x = conv1(f) + conv1_p(p)``) → global mean of r5 → FC
-2048→1 in float32. :func:`score_clip` scores all T×O (frame, object) pairs
-of a clip in one pass: the fused-box crop kernel
+2048→1 in float32. :func:`assess_forward` is the training path: box,
+crop (:func:`ivosw_tpu_torch.kernels.roi_crop.roi_crop_best`) and the
+unfolded net with train-mode BatchNorm. :func:`score_clip` scores all T×O
+(frame, object) pairs of a clip in one pass: the fused-box crop kernel
 (:mod:`ivosw_tpu_torch.kernels.roi_crop`) writes bfloat16 NHWC crops, and
 their NCHW permute is already a channels_last tensor for the convs.
 
@@ -23,14 +25,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ivosw_tpu_torch.kernels.roi_crop import roi_crop_pairs_from_probs
+from ivosw_tpu_torch.kernels.roi_crop import roi_crop_best, roi_crop_pairs_from_probs
 from ivosw_tpu_torch.models.resnet import (
     IMAGENET_MEAN,
     IMAGENET_STD,
     Conv,
-    FrozenBatchNorm,
+    BatchNorm,
     ResNet50Trunk,
 )
+from ivosw_tpu_torch.ops.roi import mask_to_yxhw
 
 ROI_SIZE = 256
 
@@ -50,7 +53,7 @@ class AssessNet(nn.Module):
         else:
             self.conv1 = Conv(3, 64, 7, stride=2, padding=3, bias=False)
             self.conv1_p = Conv(1, 64, 7, stride=2, padding=3, bias=False)
-            self.bn1 = FrozenBatchNorm(64)
+            self.bn1 = BatchNorm(64)
         self.trunk = ResNet50Trunk(fold=fold)
         self.fc1 = nn.Linear(2048, 1)
         self.register_buffer(
@@ -97,6 +100,24 @@ def init_assess_net(seed: int = 0, fold: bool = False, dtype=torch.bfloat16) -> 
         net.fc1.weight.uniform_(-bound, bound, generator=g)
         net.fc1.bias.uniform_(-bound, bound, generator=g)
     return net.eval()
+
+
+def assess_forward(
+    net: AssessNet, tf: torch.Tensor, tp: torch.Tensor, train: bool = False
+) -> torch.Tensor:
+    """Full-frame forward of the training path (``ivosw_tpu/models/assess.py:124``).
+
+    tf [B, H, W, 3] frames in [0, 1], tp [B, H, W] prob maps → [B, 1]
+    float32 predictions. Boxes from ``tp > 0.5`` (1.5× context), one fused
+    C=4 float32 crop of ``concat([tf, tp])`` through :func:`roi_crop_best`
+    (the crop kernel on the card), then the unfolded net in its dtype. The
+    net is put in train mode when ``train`` is true (batch statistics, and
+    the BN running stats updated in place) and in eval mode otherwise."""
+    boxes = mask_to_yxhw(tp > 0.5, scale=1.5)
+    fused = torch.cat([tf, tp[..., None]], dim=-1).float()
+    roi = roi_crop_best(fused, boxes, ROI_SIZE)
+    net.train(train)
+    return net(roi[..., :3], roi[..., 3:])
 
 
 def _chunk_slices(t: int, chunk: int):

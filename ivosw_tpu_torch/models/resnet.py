@@ -9,8 +9,9 @@ gone. Modules are named after the JAX parameter tree (``res2.block0.conv1``
 
 Parameters stay float32; a conv runs in the dtype of its input (its weight
 and bias are cast on the fly, as flax casts float32 params to ``dtype``)
-and an inference BatchNorm computes in float32 and returns the input's
-dtype, as flax's BatchNorm with ``dtype=bfloat16`` does.
+and a BatchNorm computes in float32 and returns the input's dtype, as
+flax's BatchNorm with ``dtype=bfloat16`` does, in inference and in training
+(:class:`BatchNorm`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax momentum 0.9 ≡ torch momentum 0.1
 RESNET50_BLOCKS: Sequence[Tuple[int, int]] = ((64, 3), (128, 4), (256, 6), (512, 3))
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -42,9 +44,18 @@ class Conv(nn.Conv2d):
         return y
 
 
-class FrozenBatchNorm(nn.Module):
-    """Inference BatchNorm: float32 statistics and affine, output in the
-    input's dtype. Parameters/buffers named as ``nn.BatchNorm2d``'s."""
+class BatchNorm(nn.Module):
+    """BatchNorm with flax's semantics. Parameters/buffers named as
+    ``nn.BatchNorm2d``'s.
+
+    Inference (``eval()``): the running statistics, in float32, output in
+    the input's dtype. Training (``train()``), as flax's ``nn.BatchNorm``
+    with ``use_running_average=False`` (``normalization.py::_compute_stats``):
+    the batch mean and the variance ``E[x²] − E[x]²`` clipped at 0, both in
+    float32 over N·H·W whatever the input's dtype; the output normalised
+    with that biased variance; the running stats updated in place as
+    ``ra = m·ra + (1 − m)·batch`` with m = :data:`BN_MOMENTUM` and the
+    biased variance (``F.batch_norm`` would store the unbiased one)."""
 
     def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
@@ -55,9 +66,18 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+                self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         # flax's op order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[None, :, None, None]) * mul[None, :, None, None]
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
         return (y + self.bias[None, :, None, None]).to(x.dtype)
 
 
@@ -76,10 +96,10 @@ class Bottleneck(nn.Module):
         self.conv3 = conv(features, out_ch, 1, 1)
         self.downsample_conv = conv(in_ch, out_ch, 1, strides) if downsample else None
         if not fold:
-            self.bn1 = FrozenBatchNorm(features)
-            self.bn2 = FrozenBatchNorm(features)
-            self.bn3 = FrozenBatchNorm(out_ch)
-            self.downsample_bn = FrozenBatchNorm(out_ch) if downsample else None
+            self.bn1 = BatchNorm(features)
+            self.bn2 = BatchNorm(features)
+            self.bn3 = BatchNorm(out_ch)
+            self.downsample_bn = BatchNorm(out_ch) if downsample else None
 
     def _bn(self, name, y):
         return y if self.fold else getattr(self, name)(y)

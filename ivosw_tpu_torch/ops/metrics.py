@@ -22,12 +22,20 @@ import numpy as np
 from scipy import ndimage
 
 __all__ = [
+    "disk_kernel",
     "batched_jaccard",
     "batched_f_measure",
     "sequence_metric",
     "auc_from_curve",
     "seg2bmap",
 ]
+
+
+def disk_kernel(radius: int) -> np.ndarray:
+    """Disk structuring element ``x² + y² ≤ r²`` of the given radius, uint8."""
+    r = int(radius)
+    y, x = np.mgrid[-r : r + 1, -r : r + 1]
+    return (x * x + y * y <= r * r).astype(np.uint8)
 
 
 def seg2bmap(seg: np.ndarray) -> np.ndarray:

@@ -11,6 +11,9 @@ the port's modules, whose names follow the JAX trees. Layout changes only:
 - LSTM ``w_ih``/``w_hh`` [H, 4H] → ``weight_ih``/``weight_hh`` [4H, H], gate
   order i, f, g, o unchanged.
 
+:func:`assess_numpy_from_state_dict` is the inverse for AssessNet, so a
+net trained by the port can be held against the JAX package's trees.
+
 The port reads no checkpoint format of the JAX package; reading those trees
 into numpy is the caller's business (the tests do it with the JAX
 package's own loader).
@@ -57,6 +60,40 @@ def assess_state_dict_from_numpy(variables: Dict[str, Any]) -> StateDict:
     {"params": ...} folded) → state dict of ``AssessNet(fold=...)``."""
     out: StateDict = {}
     _walk(variables["params"], variables.get("batch_stats", {}), "", out)
+    return out
+
+
+def assess_numpy_from_state_dict(state_dict: StateDict) -> Dict[str, Any]:
+    """State dict of ``AssessNet`` → {"params": ..., "batch_stats": ...}
+    nested dicts of float32 numpy arrays in the JAX package's layout (the
+    inverse of :func:`assess_state_dict_from_numpy`; a folded net has no
+    ``batch_stats`` entries)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def node(tree, path):
+        for name in path:
+            tree = tree.setdefault(name, {})
+        return tree
+
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        x = np.array(value.detach().cpu().float().numpy())  # a copy, not a view
+        if leaf in ("running_mean", "running_var"):
+            node(stats, path)["mean" if leaf == "running_mean" else "var"] = x
+        elif leaf == "weight" and x.ndim == 4:  # conv OIHW → HWIO
+            node(params, path)["kernel"] = np.ascontiguousarray(x.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and x.ndim == 2:  # dense [out, in] → [in, out]
+            node(params, path)["kernel"] = np.ascontiguousarray(x.T)
+        elif leaf == "weight":  # BatchNorm
+            node(params, path)["scale"] = x
+        elif leaf == "bias":
+            node(params, path)["bias"] = x
+        else:
+            raise ValueError(f"{key}: unexpected entry")
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
     return out
 
 

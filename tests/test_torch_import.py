@@ -85,6 +85,25 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_training_entry_points_refuse_cpu_fallback(monkeypatch):
+    """The trainers resolve their device like every entry point: without a
+    GPU they raise; an ImageNet trunk is refused until its slice lands."""
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.data.registry import SequenceRegistry
+    from ivosw_tpu_torch.train import pretrain_assess, train_assess
+
+    reg = SequenceRegistry.synthetic(["a"], num_frames=4, split="train")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_assess.run(Config(), registry=reg, num_steps=1, batch_size=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_assess.run(Config(), registry=reg, save_result_dir="unused")
+    cfg = Config()
+    cfg.assess_net.imagenet_ckpt = "resnet50.pth"
+    with pytest.raises(NotImplementedError, match="later slice"):
+        pretrain_assess.run(cfg, registry=reg, num_steps=1, batch_size=1, device="cpu")
+
+
 def test_models_on_another_device_raise():
     """evaluate and predict_clip_quality never copy across devices: a net,
     a Brain or a frame tensor on another device than the run's raises (the

@@ -60,3 +60,39 @@ def test_fusedbox_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         roi_crop_pairs_fusedbox(frames, probs[:1], 8)
     assert np.isfinite(roi_crop_pairs_fusedbox(frames, probs, 8).float().cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("h,w,c,s", [(48, 64, 1, 64), (96, 128, 3, 256), (480, 854, 4, 256)])
+def test_roi_crop_kernel_matches_plain(cuda, h, w, c, s):
+    """Boxes from edge-case masks plus boxes far outside the image."""
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop, roi_crop_reference
+    from ivosw_tpu_torch.ops.roi import mask_to_yxhw
+
+    masks = torch.from_numpy(edge_case_probs(1, 9, h, w, seed=w)[0] > 0.5).to(cuda)
+    yxhw = torch.cat([mask_to_yxhw(masks, 1.5), torch.tensor(
+        [[-40.0, -60.0, 20.0, 30.0], [h + 30.0, w / 2, 50.0, 25.0], [h / 2, w / 2, 4.0 * h, 4.0 * w]],
+        device=cuda)])
+    images = torch.rand((len(yxhw), h, w, c), device=cuda)
+    before = roi_crop.launches
+    out = roi_crop(images, yxhw, s)
+    ref = roi_crop_reference(images, yxhw, s)
+    torch.cuda.synchronize()
+    assert roi_crop.launches == before + 1
+    assert out.shape == (len(yxhw), s, s, c) and out.dtype == torch.float32
+    assert float((out - ref).abs().max()) <= F32_CROP_ATOL
+
+
+def test_roi_crop_kernel_rejects_bad_inputs(cuda):
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop
+
+    images = torch.zeros((2, 16, 16, 4), device=cuda)
+    yxhw = torch.tensor([[8.0, 8.0, 10.0, 10.0]] * 2, device=cuda)
+    with pytest.raises(TypeError):
+        roi_crop(images.double(), yxhw, 8)
+    with pytest.raises(ValueError):
+        roi_crop(images.transpose(1, 2), yxhw, 8)
+    with pytest.raises(ValueError):
+        roi_crop(images, yxhw.cpu(), 8)
+    with pytest.raises(ValueError):
+        roi_crop(images, yxhw[:1], 8)
+    assert torch.isfinite(roi_crop(images, yxhw, 8)).all()

@@ -121,3 +121,56 @@ def test_object_offset_reads_the_planes_in_place():
     assert torch.equal(torch.cat([tf, tp], -1), full)
     with pytest.raises(ValueError):
         port_kernel.roi_crop_pairs_fusedbox(frames, torch.from_numpy(probs), 32, obj_offset=2, num_objects=3)
+
+
+def _crop_boxes(n_masks, h, w, seed):
+    """yxhw boxes of edge-case masks, plus boxes past the ±5 px clamp: far
+    outside the image, straddling a corner, degenerate (zero height) and
+    larger than the image."""
+    masks = edge_case_probs(1, n_masks, h, w, seed=seed)[0] > 0.5
+    yxhw = np.asarray(jax_roi.mask_to_yxhw(jnp.asarray(masks), scale=1.5))
+    extra = np.array([
+        [-40.0, -60.0, 20.0, 30.0],
+        [h + 30.0, w / 2, 50.0, 25.0],
+        [0.0, w, 3.0 * h, 0.5 * w],
+        [h / 2, w / 2, 0.0, w / 3],
+        [h / 2, w / 2, 4.0 * h, 4.0 * w],
+    ], np.float32)
+    return np.concatenate([yxhw, extra]).astype(np.float32)
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("s", [64, 256])
+@pytest.mark.parametrize("h,w", [(48, 64), (96, 128)])
+def test_roi_crop_matches_pallas_and_einsum(h, w, s, c):
+    """The port's roi_crop_best on the CPU (the plain version) against the
+    JAX einsum crop, float32 within 1e-5 (summation order only), and against
+    the Pallas kernel in interpret mode within 1e-5 plus the JAX package's
+    own Pallas-vs-einsum gap on these inputs: its interpreted kernel builds
+    the sample coordinates in another float32 op order, which moves crops by
+    up to 2.7e-5 here (its own test, test_pallas_roi.py, allows 2e-5)."""
+    yxhw = _crop_boxes(9, h, w, seed=s + c)
+    images = np.random.default_rng(c).random((len(yxhw), h, w, c), dtype=np.float32)
+    got = port_kernel.roi_crop_best(torch.from_numpy(images), torch.from_numpy(yxhw), s)
+    assert got.dtype == torch.float32 and got.shape == (len(yxhw), s, s, c)
+    pallas = jax_roi_pallas.roi_crop_pallas(jnp.asarray(images), jnp.asarray(yxhw), s,
+                                            interpret=True)
+    einsum = jax_roi.roi_crop(jnp.asarray(images), jnp.asarray(yxhw), s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(einsum), rtol=0, atol=F32_ATOL)
+    jax_gap = float(np.abs(np.asarray(pallas) - np.asarray(einsum)).max())
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=0, atol=F32_ATOL + jax_gap)
+
+
+def test_roi_crop_wrapper_contract():
+    """CPU tensors take the plain version and count no launch; another
+    device, or an input that requires a gradient, raises."""
+    images = torch.rand((2, 16, 16, 4))
+    yxhw = torch.tensor([[8.0, 8.0, 10.0, 12.0], [3.0, 4.0, 20.0, 20.0]])
+    before = port_kernel.roi_crop.launches
+    out = port_kernel.roi_crop(images, yxhw, 8)
+    assert out.shape == (2, 8, 8, 4) and port_kernel.roi_crop.launches == before
+    assert torch.equal(out, port_kernel.roi_crop_reference(images, yxhw, 8))
+    with pytest.raises(ValueError, match="CUDA device"):
+        port_kernel.roi_crop(images.to("meta"), yxhw.to("meta"), 8)
+    with pytest.raises(ValueError, match="no backward"):
+        port_kernel.roi_crop(images.requires_grad_(), yxhw, 8)
