@@ -44,11 +44,44 @@ with its own seconds:
 8. train_assess: ``generate_qa_data.run`` (FakeVOS) on one 480×854 clip
    (T=8, O=2, 2 rounds: 32 prob maps as PNGs) into a temporary directory,
    then one ``train_assess.run`` epoch at batch 32: one launch per batch,
-   finite losses, ``assess_net.pt`` written.
+   finite losses, ``assess_net.pt`` written;
+9. kernel_bf16_inputs: the fused-box kernel as in 2 (T=32) with bf16
+   frames and prob maps (``assess_net.bf16_inputs``): box mismatches 0,
+   crop error under the bf16 bound;
+10. kernel_roi_crop_pairs: the given-box pair kernel (the two-stage round's
+   crop) against its plain version at one launch of that round, T=32, O=3
+   (+ background plane, object offset 1), 480×854, 256² bf16 crops of bf16
+   inputs, boxes from ``mask_to_yxhw`` of the seeded maps of 2 plus boxes
+   out of range; and in float32. Error, kernel / plain / library
+   (``affine_grid`` + ``grid_sample``) / bound times;
+11. kernel_roi_crop_pairs_premat: the matrix crop likewise (bf16 at the
+   full shape, float32 at T=4), with bilinear matrices and with seeded
+   random dense ones; library time ``torch.bmm`` of the two stages;
+12. tapnet_small: one seeded TAPNet and one 3-round episode (48×64, T=8,
+   O=2, the same scribbles) on the card and on the host: probabilities
+   within a stated bound, labels equal but within that bound of a decision,
+   flipped pixels under a stated share;
+13. tapnet_slice: the slice's main path, ``evaluate`` with ``vos=tapnet``,
+   ``setting=wild``, ``method=ours``, ``assess_net.bf16_inputs=True`` on one
+   480×854 demo clip (T=64, O=3, 3 rounds), seeded TAPNet, AssessNet
+   (BN-folded) and Brain. The fused-box kernel's launch count is zeroed
+   just before and read just after, and must equal rounds·ceil(T/32).
+   ``seg_time_avg``, ``rec_time_avg``, QA ms per round, peak memory; one
+   more TAPNet round split into encoder / A-Net / propagation, and one QA
+   round profiled (``tapnet_qa_profile``: no host-to-device copy of prob
+   maps may appear);
+14. two_stage: on the last round's TAPNet ``all_P`` (bf16, on the card) and
+   the bf16 frames, ``score_clip_folded`` with ``impl="einsum"`` (boxes,
+   then the given-box pair kernel) and with ``impl="pallas"`` (fused box),
+   chunk by chunk, then the Brain's pick: scores agree within the bf16
+   bound, the pair kernel's launches (zeroed just before) equal
+   ceil(T/32); both rounds timed.
 
 Then it prints the kernel table (one JSON object; each kernel's launches
-are those of its path's run: the slice for the fused-box kernel, the
-training run for the crop kernel), the card's name and power limit as nvidia-smi gives them, and, last, the result line
+are those of its path's run: the TAPNet slice for the fused-box kernel, the
+training run for the crop kernel, the two-stage round for the pair kernel;
+the matrix crop is on no path), the card's name and power limit as
+nvidia-smi gives them, and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -85,6 +118,24 @@ TRAIN_STEPS = 8
 LOSS_RTOL, STEP2_LOSS_RTOL = 1e-3, 2e-2
 UPDATE_RTOL, FC1_RTOL = 0.2, 1e-4
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+# the two-stage and fused-box rounds score the same pairs through crops that
+# round differently (2^-6 at most): scores agree within the bf16 scoring
+# bound of the CPU tests (tests/test_torch_assess.py), 3e-2 of the scores'
+# size (bf16 rounding errors are relative; a seeded net's scores are not of
+# order one)
+SCORE_ATOL = 3e-2
+# tapnet_small: card (cuDNN bf16) and host (float32 sums of bf16 operands)
+# convolutions round a few values the other way, and the flips compound
+# through the encoder (tests/test_torch_tapnet.py holds the port against the
+# JAX package on the host to the same bound): probabilities within
+# TAP_PROB_ATOL; a label may differ only where the winning probability lies
+# within TAP_PROB_ATOL of 0.5 or of the runner-up, and on at most
+# TAP_LABEL_SHARE of the pixels (a seeded, untrained net leaves many
+# probabilities near 0.5)
+TAP_PROB_ATOL = 2.0**-5
+TAP_LABEL_SHARE = 0.05
+TAP_ROUNDS = 3
 
 
 def log_phase(name: str, tic: float, **fields) -> None:
@@ -182,7 +233,9 @@ def affine_library_crop(torch, nchw, boxes):
                          align_corners=True)
 
 
-def phase_kernel(torch, dev, kinfo, T):
+def phase_kernel(torch, dev, kinfo, T, inputs=None):
+    """The fused-box kernel at T frames; ``inputs`` bf16 casts the frames
+    and prob maps first (assess_net.bf16_inputs)."""
     from ivosw_tpu_torch.kernels.roi_crop import (
         BF16_CROP_ATOL,
         F32_CROP_ATOL,
@@ -195,6 +248,8 @@ def phase_kernel(torch, dev, kinfo, T):
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     frames = torch.rand((T, H, W, 3), generator=g, device=dev)
     probs = make_probs(torch, dev, T)
+    inputs = inputs or torch.float32
+    frames, probs = frames.to(inputs), probs.to(inputs)
     kw = dict(obj_offset=1, num_objects=O)
 
     errs = {}
@@ -220,7 +275,7 @@ def phase_kernel(torch, dev, kinfo, T):
     nchw = torch.cat(
         [frames.permute(0, 3, 1, 2)[:, None].expand(T, O, 3, H, W),
          planes[:, :, None]], dim=2,
-    ).reshape(T * O, 4, H, W)
+    ).reshape(T * O, 4, H, W).float()
 
     def library():
         yxhw = mask_to_yxhw((planes > 0.5).reshape(T * O, H, W), 1.5)
@@ -241,15 +296,15 @@ def phase_kernel(torch, dev, kinfo, T):
 
     _, boxes = roi_crop_pairs_fusedbox(frames, probs, S, torch.bfloat16, return_boxes=True, **kw)
     bw = card_bandwidth(kinfo["name"])
-    bytes_probs = T * O * H * W * 4  # every pixel of each object plane
-    bytes_frames = frame_bytes_needed(boxes, T)
+    bytes_probs = T * O * H * W * probs.element_size()  # every pixel of each plane
+    bytes_frames = frame_bytes_needed(boxes, T) // 4 * frames.element_size()
     bytes_out = T * O * S * S * 4 * 2 + T * O * 4 * 4
     flops = T * O * S * S * 4 * 2 * 4  # 4 taps × 4 channels, multiply + add
     bytes_total = bytes_probs + bytes_frames + bytes_out
     bound_ms = max(bytes_total / bw, flops / FP32_FLOPS) * 1e3
     log_phase(
-        "kernel", tic,
-        shape={"T": T, "O": O, "H": H, "W": W, "S": S},
+        "kernel" if inputs == torch.float32 else "kernel_bf16_inputs", tic,
+        shape={"T": T, "O": O, "H": H, "W": W, "S": S}, inputs=str(inputs),
         box_mismatches=errs["torch.bfloat16"][0],
         max_abs_err_bf16=errs["torch.bfloat16"][1], bound_bf16=errs["torch.bfloat16"][2],
         max_abs_err_f32=errs["torch.float32"][1], bound_f32=errs["torch.float32"][2],
@@ -264,10 +319,10 @@ def phase_kernel(torch, dev, kinfo, T):
     }
 
 
-def run_eval(torch, dev, registry, assess_net, agent, rounds, subset, cfg):
+def run_eval(torch, dev, registry, assess_net, agent, rounds, subset, cfg, adapter=None):
     """evaluate() with each round's frame pick and predicted qualities
     recorded (wrappers around the driver's recommend_frame and the policy
-    layer's predict_clip_quality)."""
+    layer's predict_clip_quality); FakeVOS unless an adapter is given."""
     from ivosw_tpu_torch.eval import eval_agent
     from ivosw_tpu_torch.interact import recommend
     from ivosw_tpu_torch.models.vos.fake import FakeVOS
@@ -291,7 +346,7 @@ def run_eval(torch, dev, registry, assess_net, agent, rounds, subset, cfg):
     try:
         with tempfile.TemporaryDirectory() as out:
             summary = eval_agent.evaluate(
-                cfg, registry, FakeVOS(registry), agent=agent, assess_net=assess_net,
+                cfg, registry, adapter or FakeVOS(registry), agent=agent, assess_net=assess_net,
                 subset=subset, max_nb_interactions=rounds, report_save_dir=out,
                 device=dev, log=log,
             )
@@ -446,6 +501,10 @@ def profile_device(torch, fn, wall_ms: float, top: int = 10):
         "top": [
             {"name": e.key[:90], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
             for e in device[:top]
+        ],
+        "copies": [
+            {"name": e.key[:90], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
+            for e in device if is_copy(e)
         ],
     }
 
@@ -721,6 +780,392 @@ def phase_train_assess(torch, dev):
               launches=launches, losses=losses)
 
 
+def pair_case(torch, dev, T, inputs):
+    """Frames and [T, O+1, H, W] prob maps (make_probs) in ``inputs``, and
+    yxhw boxes of their masks with the last three pairs' boxes moved far
+    outside the image, across its bottom edge and around it."""
+    from ivosw_tpu_torch.ops.roi import mask_to_yxhw
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    frames = torch.rand((T, H, W, 3), generator=g, device=dev).to(inputs)
+    probs = make_probs(torch, dev, T).to(inputs)
+    yxhw = mask_to_yxhw((probs[:, 1:].float() > 0.5).reshape(T * O, H, W), 1.5)
+    yxhw[-3:] = torch.tensor([[-40.0, -60.0, 20.0, 30.0], [H + 3.0, W / 2, 50.0, 25.0],
+                              [H / 2, W / 2, 4.0 * H, 4.0 * W]], device=dev)
+    return frames, probs, yxhw
+
+
+def pair_bytes_needed(boxes, T, itemsize):
+    """Bytes of frame pixels (union per frame) and of plane pixels (per
+    pair) that the crops' non-zero taps touch, read once."""
+    from ivosw_tpu_torch.ops.roi import _interp_matrix
+
+    rows = (_interp_matrix(boxes[:, 0], boxes[:, 1], H, S) > 0).any(dim=1).reshape(T, O, H)
+    cols = (_interp_matrix(boxes[:, 2], boxes[:, 3], W, S) > 0).any(dim=1).reshape(T, O, W)
+    pix = rows[:, :, :, None] & cols[:, :, None, :]  # [T, O, H, W]
+    return int(pix.any(dim=1).sum()) * 3 * itemsize + int(pix.sum()) * itemsize
+
+
+def phase_kernel_roi_crop_pairs(torch, dev, kinfo, T):
+    """The given-box pair kernel at one launch of the two-stage round."""
+    from ivosw_tpu_torch.kernels.roi_crop import (
+        F32_CROP_ATOL,
+        PAIR_BF16_ATOL,
+        roi_crop_pairs,
+        roi_crop_pairs_reference,
+    )
+    from ivosw_tpu_torch.ops.roi import yxhw_to_minmax
+
+    tic = time.perf_counter()
+    kw = dict(obj_offset=1, num_objects=O)
+    errs = {}
+    for dtype, atol in ((torch.bfloat16, PAIR_BF16_ATOL), (torch.float32, F32_CROP_ATOL)):
+        frames, probs, yxhw = pair_case(torch, dev, T, dtype)
+        out = roi_crop_pairs(frames, probs, yxhw, S, dtype, **kw)
+        ref = roi_crop_pairs_reference(frames, probs, yxhw, S, dtype, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        if not err <= atol:
+            raise AssertionError(f"pair kernel vs plain ({dtype}): max abs err {err} (bound {atol})")
+        errs[dtype] = (err, atol)
+        del out, ref
+
+    frames, probs, yxhw = pair_case(torch, dev, T, torch.bfloat16)
+    boxes = torch.stack(yxhw_to_minmax(yxhw), dim=1)
+    nchw = torch.cat([frames.permute(0, 3, 1, 2)[:, None].expand(T, O, 3, H, W),
+                      probs[:, 1:, None]], dim=2).reshape(T * O, 4, H, W).float()
+    before = roi_crop_pairs.launches
+    kernel_ms = cuda_ms(lambda: roi_crop_pairs(frames, probs, yxhw, S, torch.bfloat16, **kw), 20)
+    plain_ms = cuda_ms(
+        lambda: roi_crop_pairs_reference(frames, probs, yxhw, S, torch.bfloat16, **kw), 3)
+    library_ms = cuda_ms(lambda: affine_library_crop(torch, nchw, boxes), 3)
+    timing_launches = roi_crop_pairs.launches - before
+
+    bytes_in = pair_bytes_needed(boxes, T, 2)
+    bytes_out = T * O * S * S * 4 * 2 + T * O * 4 * 4
+    flops = T * O * S * S * 4 * 2 * 4  # 4 taps × 4 channels, multiply + add
+    bound_ms = max((bytes_in + bytes_out) / card_bandwidth(kinfo["name"]),
+                   flops / FP32_FLOPS) * 1e3
+    log_phase(
+        "kernel_roi_crop_pairs", tic, shape={"T": T, "O": O, "H": H, "W": W, "S": S},
+        inputs="torch.bfloat16",
+        max_abs_err_bf16=errs[torch.bfloat16][0], bound_bf16=errs[torch.bfloat16][1],
+        max_abs_err_f32=errs[torch.float32][0], bound_f32=errs[torch.float32][1],
+        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bytes={"in": bytes_in, "out": bytes_out}, timing_launches=timing_launches,
+    )
+    return {"max_abs_err": errs[torch.bfloat16][0], "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+
+
+def bmm_library_crop(torch, x, ry, rx):
+    """The matrix crop as two ``torch.bmm`` (cuBLAS) stages over the pairs:
+    [P, S, H] @ [P, H, W·4], then [P, S, W] @ [P, W, S·4] → [P, S, S, 4];
+    x is the per-pair [P, H, W, 4] input (frame channels and plane)."""
+    p, s, h = ry.shape
+    w = rx.shape[2]
+    tmp = torch.bmm(ry, x.reshape(p, h, w * 4))  # [P, S, W·4]
+    tmp = tmp.reshape(p, s, w, 4).permute(0, 2, 1, 3).reshape(p, w, s * 4)
+    return torch.bmm(rx, tmp).reshape(p, s, s, 4)
+
+
+def phase_kernel_roi_crop_pairs_premat(torch, dev, kinfo, T):
+    """The matrix crop: bilinear matrices from the boxes and seeded random
+    dense ones, bf16 at one launch's shape, float32 at T=4."""
+    from ivosw_tpu_torch.kernels.roi_crop import (
+        F32_CROP_ATOL,
+        PAIR_BF16_ATOL,
+        PREMAT_BF16_ATOL,
+        PREMAT_F32_RTOL,
+        interp_matrices,
+        roi_crop_pairs_premat,
+        roi_crop_pairs_premat_reference,
+    )
+
+    tic = time.perf_counter()
+    kw = dict(obj_offset=1, num_objects=O)
+    errs = {}
+    for dtype, t in ((torch.bfloat16, T), (torch.float32, 4)):
+        frames, probs, yxhw = pair_case(torch, dev, t, dtype)
+        g = torch.Generator(device=dev).manual_seed(SEED + 4)
+        bilinear = interp_matrices(yxhw, H, W, S, dtype)
+        dense = (torch.rand((t * O, S, H), generator=g, device=dev).mul_(2.0 / H).to(dtype),
+                 torch.rand((t * O, S, W), generator=g, device=dev).mul_(2.0 / W).to(dtype))
+        for name, (ry, rx) in (("bilinear", bilinear), ("random", dense)):
+            out = roi_crop_pairs_premat(frames, probs, dtype=dtype, ry=ry, rx=rx, **kw)
+            ref = roi_crop_pairs_premat_reference(frames, probs, ry, rx, dtype, **kw)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            if dtype == torch.float32:
+                atol = max(F32_CROP_ATOL, PREMAT_F32_RTOL * float(ref.float().abs().max()))
+            else:
+                atol = PAIR_BF16_ATOL if name == "bilinear" else PREMAT_BF16_ATOL
+            if not err <= atol:
+                raise AssertionError(f"premat kernel vs plain ({dtype}, {name}): "
+                                     f"max abs err {err} (bound {atol})")
+            errs[f"{name}_{str(dtype)[6:]}"] = {"max_abs_err": err, "bound": atol}
+            del out, ref
+
+    frames, probs, yxhw = pair_case(torch, dev, T, torch.bfloat16)
+    ry, rx = interp_matrices(yxhw, H, W, S, torch.bfloat16)
+    x = torch.cat([frames.repeat_interleave(O, dim=0), probs[:, 1:].reshape(T * O, H, W, 1)],
+                  dim=-1)
+    before = roi_crop_pairs_premat.launches
+    kernel_ms = cuda_ms(
+        lambda: roi_crop_pairs_premat(frames, probs, dtype=torch.bfloat16, ry=ry, rx=rx, **kw), 5)
+    plain_ms = cuda_ms(
+        lambda: roi_crop_pairs_premat_reference(frames, probs, ry, rx, torch.bfloat16, **kw), 3)
+    library_ms = cuda_ms(lambda: bmm_library_crop(torch, x, ry, rx), 5)
+    timing_launches = roi_crop_pairs_premat.launches - before
+
+    flops = 2 * T * O * (S * H * W + S * S * W) * 4
+    bytes_total = (T * 3 + T * O) * H * W * 2 + T * O * (S * H + S * W + 4 * S * S) * 2
+    bytes_ms = bytes_total / card_bandwidth(kinfo["name"]) * 1e3
+    flops_ms = flops / BF16_FLOPS * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    log_phase(
+        "kernel_roi_crop_pairs_premat", tic, shape={"T": T, "O": O, "H": H, "W": W, "S": S},
+        errors=errs, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bytes=bytes_total, flops=flops, timing_launches=timing_launches,
+    )
+    return {"max_abs_err": errs["bilinear_bfloat16"]["max_abs_err"], "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
+def decision_margin(all_p):
+    """[T, H, W] distance of each pixel's label from a flip: the winning
+    object probability from 0.5, and from the runner-up."""
+    fg = all_p[:, 1:].float().sort(dim=1).values
+    margin = (fg[:, -1] - 0.5).abs()
+    if fg.shape[1] > 1:
+        margin = margin.minimum(fg[:, -1] - fg[:, -2])
+    return margin
+
+
+def phase_tapnet_small(torch, dev):
+    """One seeded TAPNet episode on the card and on the host, same scribbles."""
+    import numpy as np
+
+    from ivosw_tpu_torch.data.registry import SequenceRegistry
+    from ivosw_tpu_torch.data.scribbles import merge_scribbles
+    from ivosw_tpu_torch.interact.robot import ScribbleRobot
+    from ivosw_tpu_torch.models.vos.tapnet import TAPNetAdapter
+
+    tic = time.perf_counter()
+    reg = SequenceRegistry.synthetic(["s"], num_frames=8, image_size=(64, 48), num_objects=2,
+                                     seed=SEED)
+    frames, gt = reg.load_images("s"), reg.load_annotations("s")
+    card = TAPNetAdapter.create(seed=SEED, device=dev)
+    host = TAPNetAdapter.create(seed=SEED, device="cpu")
+    s_card, s_host = card.begin_sequence(frames, 2), host.begin_sequence(frames, 2)
+    robot = ScribbleRobot(seed=SEED)
+    masks, scribbles, report = np.zeros_like(gt), None, []
+    for n, frame in enumerate((3, 7, 0)[:TAP_ROUNDS], start=1):
+        new = robot.interact("s", masks, gt, 2, frame=frame)
+        scribbles = new if scribbles is None else merge_scribbles(scribbles, new)
+        labels_c, p_c, s_card = card.segment(s_card, scribbles, frame, n)
+        labels_h, p_h, s_host = host.segment(s_host, scribbles, frame, n)
+        torch.cuda.synchronize()
+        p_c = p_c.float().cpu()
+        prob_err = float((p_c - p_h.float()).abs().max())
+        flipped = torch.from_numpy(labels_c != labels_h)
+        margin = float(decision_margin(p_h)[flipped].max()) if bool(flipped.any()) else 0.0
+        share = float(flipped.float().mean())
+        report.append({"round": n, "prob_max_abs_diff": prob_err, "labels_flipped": int(flipped.sum()),
+                       "flipped_share": share, "flipped_max_margin": margin})
+        if not (prob_err <= TAP_PROB_ATOL and margin <= TAP_PROB_ATOL and share <= TAP_LABEL_SHARE):
+            raise AssertionError(f"TAPNet card vs host, round {n}: {report[-1]} (bounds "
+                                 f"{TAP_PROB_ATOL}, share {TAP_LABEL_SHARE})")
+        masks = labels_h
+    log_phase("tapnet_small", tic, rounds=report, prob_bound=TAP_PROB_ATOL,
+              label_share_bound=TAP_LABEL_SHARE)
+
+
+def timed_calls(torch, module, store):
+    """Wrap ``module.forward`` so each call's wall time, synchronised
+    before and after, is appended to ``store`` (a split measurement: the
+    synchronisations remove the host's run-ahead)."""
+    forward = module.forward
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(*args, **kwargs)
+        torch.cuda.synchronize()
+        store.append(time.perf_counter() - t0)
+        return out
+
+    module.forward = timed
+    return lambda: setattr(module, "forward", forward)
+
+
+def phase_tapnet_slice(torch, dev, kinfo):
+    """The slice's main path with TAPNet, bf16_inputs on."""
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.data.demo import DemoSpec, demo_training_registry
+    from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK, predict_clip_quality
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop_pairs_fusedbox
+    from ivosw_tpu_torch.models.vos.tapnet import TAPNetAdapter
+
+    tic = time.perf_counter()
+    spec = DemoSpec(h=H, w=W, num_frames=T_CLIP, num_objects=O, blob=BLOB)
+    registry = demo_training_registry(n_clips=1, seed=SEED, spec=spec)
+    cfg = Config(phase="eval", setting="wild", method="ours", vos="tapnet",
+                 dataset="demo", seed=SEED)
+    cfg.assess_net.bf16_inputs = True
+    assess_net, agent = make_models(torch, dev, cfg, SEED)
+    adapter = TAPNetAdapter.create(seed=SEED, qa_dtype=torch.bfloat16, device=dev)
+    last = {}
+    segment = adapter.segment
+
+    def keep_last(*args, **kwargs):
+        out = segment(*args, **kwargs)
+        last["all_p"], last["state"] = out[1], out[2]
+        return out
+
+    adapter.segment = keep_last
+    setup_s = time.perf_counter() - tic
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    roi_crop_pairs_fusedbox.launches = 0
+    summary, picks, qualities = run_eval(torch, dev, registry, assess_net, agent, TAP_ROUNDS,
+                                         "train", cfg, adapter=adapter)
+    launches = roi_crop_pairs_fusedbox.launches
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    adapter.segment = segment
+
+    rounds = len(summary["report"])
+    expected = rounds * math.ceil(T_CLIP / FRAME_CHUNK)
+    curve = summary["curve"]["J_AND_F"]
+    q = np.asarray(qualities)
+    all_p = last["all_p"]
+    if launches != expected or launches == 0:
+        raise AssertionError(f"fused-box kernel launched {launches}x, expected {expected}")
+    if q.shape != (rounds, T_CLIP) or not np.isfinite(q).all():
+        raise AssertionError(f"predicted qualities {q.shape} not finite [rounds, T_CLIP]")
+    if len(curve) != rounds or not all(0.0 <= v <= 1.0 for v in curve):
+        raise AssertionError(f"J&F curve {curve} malformed for {rounds} rounds")
+    if (all_p.dtype != torch.bfloat16 or all_p.device != dev
+            or tuple(all_p.shape) != (T_CLIP, O + 1, H, W)
+            or not bool(torch.isfinite(all_p.float()).all())):
+        raise AssertionError(f"all_P {all_p.dtype} {all_p.device} {tuple(all_p.shape)}")
+
+    # the segmentation split of one more round: encoder (begin_sequence),
+    # A-Net and the T-Net steps, each call synchronised
+    name = registry.subset("train")[0]
+    frames_host = registry.load_images(name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = adapter.begin_sequence(frames_host, O)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    anet_s, tnet_s = [], []
+    undo = [timed_calls(torch, adapter.net.anet, anet_s), timed_calls(torch, adapter.net.tnet, tnet_s)]
+    gt = registry.load_annotations(name)
+    from ivosw_tpu_torch.interact.robot import ScribbleRobot
+
+    scribbles = ScribbleRobot(seed=SEED).interact(name, np.zeros_like(gt), gt, O, frame=0)
+    t0 = time.perf_counter()
+    _, all_p_round, state = adapter.segment(state, scribbles, 0, 1)
+    torch.cuda.synchronize()
+    segment_ms = (time.perf_counter() - t0) * 1e3
+    for u in undo:
+        u()
+    split = {"encoder_ms": encode_ms, "anet_ms": sum(anet_s) * 1e3,
+             "tnet_steps": len(tnet_s), "tnet_ms": sum(tnet_s) * 1e3,
+             "segment_ms": segment_ms,
+             "segment_rest_ms": segment_ms - (sum(anet_s) + sum(tnet_s)) * 1e3}
+
+    # QA time of one round on TAPNet's own probabilities (already on the card)
+    frames = torch.as_tensor(frames_host).to(torch.bfloat16).to(dev)
+    qa_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_clip_quality(assess_net, frames, all_p, O)
+        torch.cuda.synchronize()
+        qa_ms.append((time.perf_counter() - t0) * 1e3)
+    profile = profile_device(
+        torch, lambda: predict_clip_quality(assess_net, frames, all_p, O), float(np.median(qa_ms))
+    )
+    h2d_ms = sum(e["device_ms"] for e in profile["copies"] if "HtoD" in e["name"])
+    if h2d_ms > 0.05:
+        raise AssertionError(f"host-to-device copies of {h2d_ms} ms in a TAPNet QA round")
+
+    log_phase(
+        "tapnet_slice", tic, setup_seconds=setup_s, rounds=rounds, launches=launches,
+        expected_launches=expected, picks=picks, curve=curve, auc=summary["auc"],
+        rec_time_avg_s=summary["timing"]["rec_time_avg"],
+        seg_time_avg_s=summary["timing"]["seg_time_avg"],
+        qa_ms_per_round=qa_ms, peak_memory_bytes=peak_bytes, segment_split=split,
+        card=kinfo["name"], power_limit=kinfo["power_limit"],
+    )
+    print(json.dumps({"phase": "tapnet_qa_profile", "h2d_copy_ms": h2d_ms, **profile}), flush=True)
+    return launches, frames, all_p, assess_net, agent
+
+
+def phase_two_stage(torch, dev, frames, all_p, assess_net, agent):
+    """perf_probe v2's round on TAPNet's bf16 maps: boxes, then the given-box
+    pair kernel (impl="einsum"), against the fused-box round."""
+    import numpy as np
+
+    from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop_pairs
+    from ivosw_tpu_torch.models.assess import mean_object_quality, score_clip_folded
+
+    tic = time.perf_counter()
+    t = all_p.shape[0]
+    obj_valid = torch.ones((O,), dtype=torch.float32, device=dev)
+
+    def qa_round(impl):
+        scores = torch.cat([
+            score_clip_folded(assess_net, frames[s:s + FRAME_CHUNK], all_p[s:s + FRAME_CHUNK],
+                              obj_valid, obj_offset=1, impl=impl)
+            for s in range(0, t, FRAME_CHUNK)
+        ])
+        quality = mean_object_quality(scores, obj_valid).cpu().numpy()
+        state = np.stack([quality, np.zeros(t, np.float32)], axis=1).astype(np.float32)
+        return scores, agent.action(state)
+
+    qa_round("einsum")  # warm-up: cuDNN's algorithm choice
+    torch.cuda.synchronize()
+    roi_crop_pairs.launches = 0
+    t0 = time.perf_counter()
+    scores_e, pick_e = qa_round("einsum")
+    torch.cuda.synchronize()
+    einsum_ms = [(time.perf_counter() - t0) * 1e3]
+    launches = roi_crop_pairs.launches
+    scores_p, pick_p = qa_round("pallas")
+    err = float((scores_e - scores_p).abs().max())
+    size = float(scores_p.abs().max())
+    bound = SCORE_ATOL * max(1.0, size)
+    expected = math.ceil(t / FRAME_CHUNK)
+    if launches != expected:
+        raise AssertionError(f"pair kernel launched {launches}x in the two-stage round, "
+                             f"expected {expected}")
+    if not err <= bound or not bool(torch.isfinite(scores_e).all()):
+        raise AssertionError(f"two-stage vs fused-box scores: max abs diff {err} "
+                             f"(bound {bound}, largest score {size})")
+    pallas_ms = []
+    for impl, store in (("einsum", einsum_ms), ("pallas", pallas_ms), ("einsum", einsum_ms),
+                        ("pallas", pallas_ms)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qa_round(impl)
+        torch.cuda.synchronize()
+        store.append((time.perf_counter() - t0) * 1e3)
+    log_phase("two_stage", tic, frames=t, launches=launches, expected_launches=expected,
+              score_max_abs_diff=err, largest_score=size, bound=bound,
+              picks={"einsum": pick_e, "pallas": pick_p},
+              einsum_round_ms=einsum_ms, fusedbox_round_ms=pallas_ms)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -752,40 +1197,41 @@ def main() -> int:
 
     from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK
 
-    stats = phase_kernel(torch, dev, kinfo, FRAME_CHUNK)  # one main-path launch
+    f32_stats = phase_kernel(torch, dev, kinfo, FRAME_CHUNK)  # one main-path launch
     phase_kernel(torch, dev, kinfo, T_CLIP)
     phase_small(torch, dev)
-    launches = phase_slice(torch, dev, kinfo)
+    fake_launches = phase_slice(torch, dev, kinfo)
     crop_stats = phase_kernel_roi_crop(torch, dev, kinfo)
     phase_train_small(torch, dev)
     crop_launches = phase_train(torch, dev, kinfo)
     phase_train_assess(torch, dev)
+    stats = phase_kernel(torch, dev, kinfo, FRAME_CHUNK, torch.bfloat16)
+    pair_stats = phase_kernel_roi_crop_pairs(torch, dev, kinfo, FRAME_CHUNK)
+    premat_stats = phase_kernel_roi_crop_pairs_premat(torch, dev, kinfo, FRAME_CHUNK)
+    phase_tapnet_small(torch, dev)
+    launches, frames, all_p, assess_net, agent = phase_tapnet_slice(torch, dev, kinfo)
+    pair_launches = phase_two_stage(torch, dev, frames, all_p, assess_net, agent)
 
-    kernels = [{
-        "name": "roi_crop_pairs_fusedbox",
-        "route": "cuda",
-        "source": "ivosw_tpu_torch/csrc/roi_crop_fusedbox.cu",
-        "replaces": "ivosw_tpu/kernels/roi_pallas.py:461",
-        "launches": launches,
-        "max_abs_err": stats["max_abs_err"],
-        "ms": stats["ms"],
-        "plain_ms": stats["plain_ms"],
-        "bound_ms": stats["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": stats["library_ms"],
-    }, {
-        "name": "roi_crop",
-        "route": "cuda",
-        "source": "ivosw_tpu_torch/csrc/roi_crop.cu",
-        "replaces": "ivosw_tpu/kernels/roi_pallas.py:67",
-        "launches": crop_launches,
-        "max_abs_err": crop_stats["max_abs_err"],
-        "ms": crop_stats["ms"],
-        "plain_ms": crop_stats["plain_ms"],
-        "bound_ms": crop_stats["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": crop_stats["library_ms"],
-    }]
+    def row(name, source, replaces, launches, st, bound_by, path):
+        return {
+            "name": name, "route": "cuda", "source": f"ivosw_tpu_torch/csrc/{source}",
+            "replaces": f"ivosw_tpu/kernels/roi_pallas.py:{replaces}", "launches": launches,
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": bound_by, "library_ms": st["library_ms"],
+            "path": path,
+        }
+
+    fused = row("roi_crop_pairs_fusedbox", "roi_crop_fusedbox.cu", 461, launches, stats, "bytes",
+                "tapnet_slice (bf16 inputs)")
+    fused["float32_inputs"] = {"launches": fake_launches, "path": "slice", **f32_stats}
+    kernels = [
+        fused,
+        row("roi_crop", "roi_crop.cu", 67, crop_launches, crop_stats, "bytes", "train"),
+        row("roi_crop_pairs", "roi_crop_pairs.cu", 299, pair_launches, pair_stats,
+            pair_stats["bound_by"], "two_stage"),
+        row("roi_crop_pairs_premat", "roi_crop_pairs_premat.cu", 584, 0, premat_stats,
+            premat_stats["bound_by"], None),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,12 +11,14 @@
 //      clamped to [-5, H+5] x [-5, W+5], recentred through (y, x, h, w);
 //   2. the S x S align_corners bilinear crop of the frame's 3 channels and
 //      the prob plane inside that box, zeros outside the image.
-// Output NHWC [T*O, S, S, 4] (rgb + prob), bf16 or f32; boxes [T*O, 4] f32
-// as (ymin, ymax, xmin, xmax).
+// Inputs: frames NHWC [T, H, W, 3] and prob planes [T, P, H, W], each f32 or
+// bf16 (assess_net.bf16_inputs keeps both in bf16 on the card). Output NHWC
+// [T*O, S, S, 4] (rgb + prob), bf16 or f32; boxes [T*O, 4] f32 as
+// (ymin, ymax, xmin, xmax).
 //
 // Bound: memory bandwidth. The box needs every prob pixel: at T=64, O=3,
-// 480x854 that is 315 MB of f32 read once, plus 101 MB of bf16 crops
-// written, about 0.12 ms at 3.35 TB/s. The crop does 16 multiply-adds per
+// 480x854 that is 315 MB of f32 (157 MB of bf16) read once, plus 101 MB of
+// bf16 crops written, about 0.12 ms (0.08 ms) at 3.35 TB/s. The crop does 16 multiply-adds per
 // output pixel (4 taps x 4 channels), about 0.8 GFLOP in all, far below the
 // card's rate.
 //
@@ -31,8 +33,10 @@
 //     kernel's interpolation matrices Ry/Rx has at most two non-zero taps,
 //     so each output pixel is a 4-tap gather: taps floor(c) and floor(c)+1
 //     with weights max(0, 1 - |c - s|), taps outside the image dropped.
-//     Frames and prob planes are read in their f32 layout (no cast pass),
-//     sums run in f32 and round once on store. No dense interpolation
+//     Frames and prob planes are read in their own layout and type (no
+//     cast pass; a bf16 value widens to f32 exactly, so the > 0.5 test on a
+//     bf16 plane is the reference's test on its f32 upcast), sums run in
+//     f32 and round once on store. No dense interpolation
 //     matrix product is done (the TPU form spends 2*S*H*W MACs per channel,
 //     nearly all on zeros).
 
@@ -46,6 +50,9 @@ namespace {
 constexpr int kBoxThreads = 512;
 constexpr int kCropThreads = 128;
 
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
 __device__ __forceinline__ void expand_min_side(float& lo, float& hi, float min_side) {
   const float res = min_side - (hi - lo);
   const float half = floorf(res / 2.0f);
@@ -55,14 +62,15 @@ __device__ __forceinline__ void expand_min_side(float& lo, float& hi, float min_
   }
 }
 
+template <typename ProbT>
 __global__ void __launch_bounds__(kBoxThreads) box_kernel(
-    const float* __restrict__ probs, int planes_per_frame, int obj_offset,
+    const ProbT* __restrict__ probs, int planes_per_frame, int obj_offset,
     int num_objects, int H, int W, float min_side, float grow,
     float* __restrict__ boxes) {
   const int pair = blockIdx.x;
   const int t = pair / num_objects;
   const int o = pair - t * num_objects;
-  const float* plane =
+  const ProbT* plane =
       probs + ((int64_t)t * planes_per_frame + obj_offset + o) * (int64_t)H * W;
 
   const int lane = threadIdx.x & 31;
@@ -70,11 +78,11 @@ __global__ void __launch_bounds__(kBoxThreads) box_kernel(
   const int nwarps = blockDim.x >> 5;
   int ymin = INT_MAX, ymax = -1, xmin = INT_MAX, xmax = -1;
   for (int y = warp; y < H; y += nwarps) {
-    const float* row = plane + (int64_t)y * W;
+    const ProbT* row = plane + (int64_t)y * W;
     bool hit = false;
 #pragma unroll 8
     for (int x = lane; x < W; x += 32) {
-      if (row[x] > 0.5f) {
+      if (ld(row + x) > 0.5f) {
         hit = true;
         xmin = min(xmin, x);
         xmax = max(xmax, x);
@@ -144,9 +152,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   q[1] = __floats2bfloat162_rn(v[2], v[3]);
 }
 
-template <typename OutT>
+template <typename FrameT, typename ProbT, typename OutT>
 __global__ void __launch_bounds__(kCropThreads) crop_kernel(
-    const float* __restrict__ frames, const float* __restrict__ probs,
+    const FrameT* __restrict__ frames, const ProbT* __restrict__ probs,
     int planes_per_frame, int obj_offset, int num_objects, int H, int W, int S,
     const float* __restrict__ boxes, OutT* __restrict__ out) {
   const int i = blockIdx.x;  // output row
@@ -164,8 +172,8 @@ __global__ void __launch_bounds__(kCropThreads) crop_kernel(
   const float wy[2] = {fmaxf(0.0f, 1.0f - fabsf(cy - fy)),
                        fmaxf(0.0f, 1.0f - fabsf(cy - (fy + 1.0f)))};
 
-  const float* frame = frames + (int64_t)t * H * W * 3;
-  const float* plane =
+  const FrameT* frame = frames + (int64_t)t * H * W * 3;
+  const ProbT* plane =
       probs + ((int64_t)t * planes_per_frame + obj_offset + o) * (int64_t)H * W;
   OutT* orow = out + ((int64_t)pair * S + i) * S * 4;
 
@@ -187,11 +195,11 @@ __global__ void __launch_bounds__(kCropThreads) crop_kernel(
         const int y = ty + dy;
         if (y < 0 || y >= H) continue;
         const int64_t pix = (int64_t)y * W + x;
-        const float* px = frame + pix * 3;
-        col[0] += wy[dy] * px[0];
-        col[1] += wy[dy] * px[1];
-        col[2] += wy[dy] * px[2];
-        col[3] += wy[dy] * plane[pix];
+        const FrameT* px = frame + pix * 3;
+        col[0] += wy[dy] * ld(px);
+        col[1] += wy[dy] * ld(px + 1);
+        col[2] += wy[dy] * ld(px + 2);
+        col[3] += wy[dy] * ld(plane + pix);
       }
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[c] += wx[dx] * col[c];
@@ -200,33 +208,50 @@ __global__ void __launch_bounds__(kCropThreads) crop_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int ivosw_roi_crop_pairs_fusedbox(
-    const void* frames, const void* probs, int T, int planes_per_frame,
-    int obj_offset, int num_objects, int H, int W, int S, float min_side,
-    float grow, void* boxes, void* out, int out_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename FrameT, typename ProbT>
+int launch(const void* frames, const void* probs, int T, int planes_per_frame,
+           int obj_offset, int num_objects, int H, int W, int S, float min_side,
+           float grow, float* boxes, void* out, int out_bf16, cudaStream_t st) {
   const int pairs = T * num_objects;
-  if (pairs == 0) return 0;
-  const float* f = static_cast<const float*>(frames);
-  const float* p = static_cast<const float*>(probs);
-  float* b = static_cast<float*>(boxes);
-  box_kernel<<<pairs, kBoxThreads, 0, st>>>(p, planes_per_frame, obj_offset,
-                                           num_objects, H, W, min_side, grow, b);
+  const FrameT* f = static_cast<const FrameT*>(frames);
+  const ProbT* p = static_cast<const ProbT*>(probs);
+  box_kernel<ProbT><<<pairs, kBoxThreads, 0, st>>>(
+      p, planes_per_frame, obj_offset, num_objects, H, W, min_side, grow, boxes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(S, pairs);
   if (out_bf16) {
-    crop_kernel<__nv_bfloat16><<<grid, kCropThreads, 0, st>>>(
-        f, p, planes_per_frame, obj_offset, num_objects, H, W, S, b,
+    crop_kernel<FrameT, ProbT, __nv_bfloat16><<<grid, kCropThreads, 0, st>>>(
+        f, p, planes_per_frame, obj_offset, num_objects, H, W, S, boxes,
         static_cast<__nv_bfloat16*>(out));
   } else {
-    crop_kernel<float><<<grid, kCropThreads, 0, st>>>(
-        f, p, planes_per_frame, obj_offset, num_objects, H, W, S, b,
+    crop_kernel<FrameT, ProbT, float><<<grid, kCropThreads, 0, st>>>(
+        f, p, planes_per_frame, obj_offset, num_objects, H, W, S, boxes,
         static_cast<float*>(out));
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ivosw_roi_crop_pairs_fusedbox(
+    const void* frames, const void* probs, int frames_bf16, int probs_bf16, int T,
+    int planes_per_frame, int obj_offset, int num_objects, int H, int W, int S,
+    float min_side, float grow, void* boxes, void* out, int out_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T * num_objects == 0) return 0;
+  float* b = static_cast<float*>(boxes);
+  if (frames_bf16 && probs_bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(frames, probs, T, planes_per_frame,
+        obj_offset, num_objects, H, W, S, min_side, grow, b, out, out_bf16, st);
+  if (frames_bf16)
+    return launch<__nv_bfloat16, float>(frames, probs, T, planes_per_frame,
+        obj_offset, num_objects, H, W, S, min_side, grow, b, out, out_bf16, st);
+  if (probs_bf16)
+    return launch<float, __nv_bfloat16>(frames, probs, T, planes_per_frame,
+        obj_offset, num_objects, H, W, S, min_side, grow, b, out, out_bf16, st);
+  return launch<float, float>(frames, probs, T, planes_per_frame,
+      obj_offset, num_objects, H, W, S, min_side, grow, b, out, out_bf16, st);
 }
 
 extern "C" const char* ivosw_cuda_error_string(int code) {

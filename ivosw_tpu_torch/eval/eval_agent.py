@@ -7,10 +7,12 @@ quality / correlation logging, and a
 the AUC and the J&F-vs-round curve.
 
 CLI: ``python -m ivosw_tpu_torch.eval.eval_agent [key=value ...] [--force]
-[--cpu]``, e.g. ``dataset=demo vos=fake setting=wild method=ours``; it runs
-on CUDA unless ``--cpu`` is given. Weights: ``agent.pt``
-and ``assess_net.pt`` in ``ckpt_dir`` (torch state dicts of ``Brain`` and of
-an unfolded ``AssessNet``) when present, else seeded random weights. The
+[--cpu]``, e.g. ``dataset=demo vos=fake setting=wild method=ours`` or
+``dataset=demo vos=tapnet setting=wild method=ours
+assess_net.bf16_inputs=true``; it runs on CUDA unless ``--cpu`` is given. Weights: ``agent.pt``,
+``assess_net.pt`` and ``tapnet.pt`` in ``ckpt_dir`` (torch state dicts of
+``Brain``, of an unfolded ``AssessNet`` and of ``TAPNet``) when present,
+else seeded random weights. The
 data-parallel sweep (``evaluate_dp``) comes with the parallelism slice.
 """
 
@@ -88,16 +90,17 @@ def evaluate(
 
     ``assess_net``: the AssessNet scoring the wild setting's worst/ours
     methods, already on ``device`` (as is the agent's Brain; either on
-    another device raises); frames go to ``device`` once per sequence.
+    another device raises); frames go to ``device`` once per sequence, in
+    bfloat16 when ``cfg.assess_net.bf16_inputs`` is set (as the JAX
+    package's upload).
     ``device=None`` means CUDA (raises without a GPU).
     ``samples``: optional explicit (sequence, scribble_idx) list."""
     device = resolve_device(device)
     check_on_device(device, assess_net=assess_net, agent=getattr(agent, "brain", None))
-    if getattr(cfg.assess_net, "bf16_inputs", False):
-        raise NotImplementedError(
-            "assess_net.bf16_inputs: the crop kernel reads float32 frames "
-            "and prob maps (bf16 inputs are a later slice)"
-        )
+    # bf16_inputs halves the frames' upload and every round's reads of them
+    frame_dtype = (
+        torch.bfloat16 if getattr(cfg.assess_net, "bf16_inputs", False) else torch.float32
+    )
     log = log or create_stream_logger("eval")
     set_random_seed(cfg.seed)
     metric_to_optimize = cfg.davis_interactive.metric
@@ -143,7 +146,7 @@ def evaluate(
                 if cfg.setting == "wild" and cfg.method in ("ours", "worst"):
                     # one upload per sequence; every round's scoring pass
                     # then reads the frames from device memory
-                    all_F_dev = torch.as_tensor(all_F, dtype=torch.float32, device=device)
+                    all_F_dev = torch.as_tensor(all_F).to(frame_dtype).to(device)
                 else:
                     all_F_dev = all_F
                 n_frame = info.num_frames
@@ -282,7 +285,7 @@ def build_and_evaluate(cfg: Config, overwrite: bool = False, device=None):
     return evaluate(
         cfg,
         registry,
-        build_backbone(cfg, registry),
+        build_backbone(cfg, registry, device),
         agent=agent,
         assess_net=assess_net,
         max_nb_interactions=cfg.eval_rounds,

@@ -100,12 +100,15 @@ def predict_clip_quality(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Predicted quality for every frame of a clip.
 
-    all_F: [T, H, W, 3] float32 frames, a tensor on the scoring device
-    (uploaded once per sequence by the caller) or a host array; all_P:
-    [T, O+1, H, W] float32 probabilities with background channel 0 (adapter
-    output), uploaded here once per call and passed whole to the crop
-    kernel with object offset 1 (no strided copy of the object planes).
-    Returns (per-frame mean quality [T], per-object scores [T, n_objects]).
+    all_F: [T, H, W, 3] frames, a tensor on the scoring device (uploaded
+    once per sequence by the caller, in bfloat16 under
+    ``assess_net.bf16_inputs``) or a host array; all_P: [T, O+1, H, W]
+    probabilities with background channel 0 (adapter output: a tensor that
+    stays on the device, as TAPNet's, or a host array, uploaded here once
+    per call), passed whole to the crop kernel with object offset 1 (no
+    strided copy of the object planes). Both keep their dtype (float32 or
+    bfloat16). Returns (per-frame mean quality [T], per-object scores
+    [T, n_objects]).
 
     chunk: frames per scoring block; None → FRAME_CHUNK
     (cfg.assess_net.score_chunk). A tensor argument on another device than
@@ -113,8 +116,8 @@ def predict_clip_quality(
     chunk = int(chunk) if chunk else FRAME_CHUNK
     device = next(assess_net.parameters()).device
     check_on_device(device, all_F=all_F, all_P=all_P)
-    all_F = torch.as_tensor(all_F, dtype=torch.float32, device=device)
-    all_P = torch.as_tensor(all_P, dtype=torch.float32, device=device)
+    all_F = torch.as_tensor(all_F, device=device)
+    all_P = torch.as_tensor(all_P, device=device)
     obj_valid = torch.ones((n_objects,), dtype=torch.float32, device=device)
 
     t = all_F.shape[0]

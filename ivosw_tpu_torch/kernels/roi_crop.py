@@ -1,29 +1,54 @@
 """ROI crop kernels for Hopper and their plain versions.
 
-Two CUDA kernels, each beside its plain torch version:
+Four CUDA kernels, each beside its plain torch version. A wrapper launches
+its kernel for CUDA tensors and counts each launch in ``<wrapper>.launches``;
+for CPU tensors it computes the plain version instead (and counts nothing).
+Any other device raises. None has a backward (nor have the TPU kernels).
 
-Fused-box pair crop, counterpart of ``roi_crop_pairs_pallas_fusedbox`` and
-``roi_crop_pairs_from_probs`` in ``ivosw_tpu/kernels/roi_pallas.py`` (the
-scoring path). For each pair (t, o) the ROI box comes from
-``probs[t, obj_offset + o] > 0.5`` (:func:`ivosw_tpu_torch.ops.roi.mask_to_yxhw`
-rules) and the S×S bilinear crop of the frame's 3 channels and of that prob
-plane is returned as NHWC ``[T·O, S, S, 4]``.
+T×O pair crops (the scoring round). For each pair (t, o) the S×S bilinear
+crop (align corners, zeros outside the image) of frame t's 3 channels and of
+prob plane ``obj_offset + o`` is returned as NHWC ``[T·O, S, S, 4]`` in
+``dtype``. Frames ``[T, H, W, 3]`` and probs ``[T, P, H, W]`` may each be
+float32 or bfloat16 (``assess_net.bf16_inputs``); an adapter's
+``[T, O+1, H, W]`` maps with background plane 0 are passed whole with
+``obj_offset=1``, so no strided copy of the object planes is made.
 
-- :func:`roi_crop_pairs_fusedbox` launches the kernel of
-  ``csrc/roi_crop_fusedbox.cu`` for CUDA tensors and counts each launch in
-  ``roi_crop_pairs_fusedbox.launches``; for CPU tensors it computes the plain
-  version instead (and counts nothing). Any other device raises.
-- :func:`roi_crop_pairs_fusedbox_reference` is the plain version: the
-  mask_to_yxhw boxes and the einsum recipe of ``roi_pallas.py:536-545`` and
-  ``:663-693`` with the JAX package's casts to ``dtype`` (frames, prob
-  planes, interpolation matrices and the row-contracted intermediate).
-
-Numbers: boxes agree bit for bit. In float32 the crops agree to summation
-order (1e-5). In bfloat16 the kernel rounds once, on store, while the plain
-version rounds five times (inputs, both matrices, the intermediate, the
-output); for values in [0, 1] each rounding moves a value by at most half
-an ulp, 2⁻⁹, and the output rounding at the top of the range by up to 2⁻⁸,
-so the two differ by at most :data:`BF16_CROP_ATOL` = 2⁻⁶.
+- :func:`roi_crop_pairs_fusedbox` (``csrc/roi_crop_fusedbox.cu``, replaces
+  ``roi_crop_pairs_pallas_fusedbox``, ``ivosw_tpu/kernels/roi_pallas.py:461``):
+  the boxes come from ``probs > 0.5`` inside the kernel
+  (:func:`ivosw_tpu_torch.ops.roi.mask_to_yxhw` rules). Plain version
+  :func:`roi_crop_pairs_fusedbox_reference`: those boxes, then
+  :func:`roi_crop_pairs_reference`. The kernel rounds once, on store, while
+  the plain version rounds five times (inputs, both matrices, the
+  intermediate, the output); for values in [0, 1] each rounding moves a
+  value by at most half an ulp, 2⁻⁹, and the output rounding at the top of
+  the range by up to 2⁻⁸, so in bfloat16 the two differ by at most
+  :data:`BF16_CROP_ATOL` = 2⁻⁶; boxes agree bit for bit.
+- :func:`roi_crop_pairs` (``csrc/roi_crop_pairs.cu``, replaces
+  ``roi_crop_pairs_pallas``, ``roi_pallas.py:299``, reached through
+  ``roi_crop_pairs`` :639): given yxhw boxes ``[T·O, 4]``. Plain version
+  :func:`roi_crop_pairs_reference`, the einsum of ``roi_crop_pairs_einsum``
+  (:663) with its casts to ``dtype`` (inputs, matrices, the row-contracted
+  intermediate, the output). The kernel rounds at those same points, and
+  each of its sums has two terms whose bfloat16 products are exact, so in
+  bfloat16 it agrees with the plain version to :data:`PAIR_BF16_ATOL` (one
+  ulp at 1, for a sum order neither side fixes); in float32 to
+  :data:`F32_CROP_ATOL`.
+- :func:`roi_crop_pairs_premat` (``csrc/roi_crop_pairs_premat.cu``, replaces
+  ``roi_crop_pairs_pallas_premat``, ``roi_pallas.py:584``): the same crop
+  from given interpolation matrices Ry ``[T·O, S, H]`` and Rx
+  ``[T·O, S, W]``, built from yxhw boxes as the TPU wrapper builds them or
+  passed in (any values: the kernel reads every entry). Plain version
+  :func:`roi_crop_pairs_premat_reference`. With bilinear matrices each dense
+  sum has two non-zero terms and the bound is :data:`PAIR_BF16_ATOL`; with
+  dense matrices the float32 sums of H (then W) terms run in another order
+  than the plain version's, a bfloat16 intermediate may round the other way
+  (one ulp), and the bound is :data:`PREMAT_BF16_ATOL` (float32:
+  :data:`PREMAT_F32_RTOL` of the largest output).
+- :func:`roi_crop_pairs_from_probs` is the scoring round's dispatch, the
+  counterpart of ``roi_pallas.py:518``: ``impl="auto"`` or ``"pallas"`` →
+  the fused-box kernel; ``"einsum"`` → the two-stage round,
+  ``mask_to_yxhw`` on the selected planes and then :func:`roi_crop_pairs`.
 
 Crop with given boxes, counterpart of ``roi_crop_pallas`` and
 ``roi_crop_best`` (``roi_pallas.py:67``, ``:233``; the AssessNet training
@@ -55,9 +80,15 @@ from ivosw_tpu_torch.ops.roi import roi_crop as _roi_crop_einsum  # the plain cr
 ROI_S = 256
 BF16_CROP_ATOL = 2.0**-6
 F32_CROP_ATOL = 1e-5
+PAIR_BF16_ATOL = 2.0**-7
+PREMAT_BF16_ATOL = 2.0**-6
+PREMAT_F32_RTOL = 1e-5
 
 _SOURCE = "roi_crop_fusedbox"
+_PAIRS_SOURCE = "roi_crop_pairs"
+_PREMAT_SOURCE = "roi_crop_pairs_premat"
 _CROP_SOURCE = "roi_crop"
+_INPUT_TYPES = (torch.float32, torch.bfloat16)
 
 
 def _selected_planes(probs, obj_offset, num_objects):
@@ -67,6 +98,123 @@ def _selected_planes(probs, obj_offset, num_objects):
             f"objects [{obj_offset}, {obj_offset + o}) outside probs {tuple(probs.shape)}"
         )
     return o
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs),
+    False when all lie on one CUDA device (the kernel runs); raises for any
+    other placement and for a tensor that requires a gradient."""
+    if any(x.requires_grad for x in tensors):
+        raise ValueError("the crop kernels have no backward: pass tensors that do not require grad")
+    devices = {x.device for x in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        names = ", ".join(str(d) for d in sorted(devices, key=str))
+        raise ValueError(f"tensors on {names}: all must be on one CUDA device (or on the CPU)")
+    return False
+
+
+def _check_pair_inputs(frames, probs, out_size, dtype):
+    """Shape/type/layout checks of a pair crop's CUDA launch → (T, H, W)."""
+    if frames.dtype not in _INPUT_TYPES or probs.dtype not in _INPUT_TYPES:
+        raise TypeError(f"need float32 or bfloat16 frames/probs, got {frames.dtype}/{probs.dtype}")
+    if frames.dim() != 4 or frames.shape[3] != 3 or probs.dim() != 4:
+        raise ValueError(f"need frames [T,H,W,3], probs [T,P,H,W]; got "
+                         f"{tuple(frames.shape)}, {tuple(probs.shape)}")
+    t, h, w, _ = frames.shape
+    if probs.shape[0] != t or tuple(probs.shape[2:]) != (h, w):
+        raise ValueError(f"probs {tuple(probs.shape)} do not match frames "
+                         f"{tuple(frames.shape)}")
+    if not (frames.is_contiguous() and probs.is_contiguous()):
+        raise ValueError("frames and probs must be contiguous")
+    if dtype not in _INPUT_TYPES:
+        raise TypeError(f"output dtype must be bfloat16 or float32, got {dtype}")
+    if out_size < 2:
+        raise ValueError(f"out_size must be >= 2, got {out_size}")
+    return t, h, w
+
+
+def _is_bf16(x) -> int:
+    return int(x.dtype == torch.bfloat16)
+
+
+def _bind(lib: ctypes.CDLL, name: str, argtypes):
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_c_int, _c_float, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+
+def _check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise when a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        lib.ivosw_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.ivosw_cuda_error_string.restype = ctypes.c_char_p
+        msg = lib.ivosw_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}: {msg}")
+
+
+def _load(source: str) -> ctypes.CDLL:
+    from ivosw_tpu_torch.kernels import _build
+
+    return _build.load(source)
+
+
+# ------------------------------------------------------- plain versions --
+def roi_crop_pairs_premat_reference(
+    frames, probs, ry, rx, dtype=torch.bfloat16, obj_offset: int = 0,
+    num_objects: int | None = None,
+):
+    """Plain torch version of :func:`roi_crop_pairs_premat` (any device):
+    ``roi_crop_pairs_einsum``'s contractions with the given Ry [T·O, S, H]
+    and Rx [T·O, S, W] and its casts to ``dtype`` → [T·O, S, S, 4]."""
+    t, h, w, _ = frames.shape
+    o = _selected_planes(probs, obj_offset, num_objects)
+    s = ry.shape[1]
+
+    def cast(x):  # one rounding to the working type, then float32 products
+        return x.to(dtype).float()
+
+    planes = probs[:, obj_offset : obj_offset + o]
+    ry = cast(ry).reshape(t, o, s, h)
+    rx = cast(rx).reshape(t, o, s, w)
+    tmp_f = cast(torch.einsum("tosh,thwc->toswc", ry, cast(frames)))
+    tf_roi = torch.einsum("toxw,toswc->tosxc", rx, tmp_f)
+    tmp_p = cast(torch.einsum("tosh,tohw->tosw", ry, cast(planes)))
+    tp_roi = torch.einsum("toxw,tosw->tosx", rx, tmp_p)
+    out = torch.cat([tf_roi, tp_roi[..., None]], dim=-1).reshape(t * o, s, s, 4)
+    return out.to(dtype)
+
+
+def interp_matrices(yxhw, h: int, w: int, out_size: int = ROI_S, dtype=torch.float32):
+    """Ry [B, S, H] and Rx [B, S, W] of yxhw boxes [B, 4] in ``dtype``
+    (``_interp_matrix`` of the box edges, as ``roi_pallas.py:599-601``)."""
+    ymin, ymax, xmin, xmax = yxhw_to_minmax(yxhw.float())
+    return (_interp_matrix(ymin, ymax, h, out_size).to(dtype),
+            _interp_matrix(xmin, xmax, w, out_size).to(dtype))
+
+
+def roi_crop_pairs_reference(
+    frames, probs, yxhw, out_size: int = ROI_S, dtype=torch.bfloat16,
+    obj_offset: int = 0, num_objects: int | None = None,
+):
+    """Plain torch version of :func:`roi_crop_pairs` (any device):
+    ``roi_crop_pairs_einsum`` with the JAX package's casts → [T·O, S, S, 4]."""
+    ry, rx = interp_matrices(yxhw, frames.shape[1], frames.shape[2], out_size)
+    return roi_crop_pairs_premat_reference(frames, probs, ry, rx, dtype, obj_offset,
+                                           num_objects)
+
+
+def _boxes_from_probs(probs, obj_offset, o, scale, min_side):
+    t, _, h, w = probs.shape
+    planes = probs[:, obj_offset : obj_offset + o]
+    return mask_to_yxhw((planes > 0.5).reshape(t * o, h, w), scale, min_side)
 
 
 def roi_crop_pairs_fusedbox_reference(
@@ -80,60 +228,20 @@ def roi_crop_pairs_fusedbox_reference(
     num_objects: int | None = None,
     return_boxes: bool = False,
 ):
-    """Plain torch version of :func:`roi_crop_pairs_fusedbox` (any device).
-
-    frames [T, H, W, 3] float; probs [T, P, H, W] float32 from which planes
-    ``obj_offset .. obj_offset+O-1`` are used. Returns [T·O, S, S, 4] in
-    ``dtype`` (and the [T·O, 4] float32 (ymin, ymax, xmin, xmax) boxes)."""
-    t, h, w, _ = frames.shape
+    """Plain torch version of :func:`roi_crop_pairs_fusedbox` (any device):
+    the mask_to_yxhw boxes of ``probs > 0.5`` (thresholded on the float32
+    value of a bfloat16 plane, exact), then :func:`roi_crop_pairs_reference`.
+    Returns [T·O, S, S, 4] in ``dtype`` (and the [T·O, 4] float32 (ymin,
+    ymax, xmin, xmax) boxes)."""
     o = _selected_planes(probs, obj_offset, num_objects)
-    s = out_size
-    planes = probs[:, obj_offset : obj_offset + o].float()
-    yxhw = mask_to_yxhw((planes > 0.5).reshape(t * o, h, w), scale, min_side)
-    ymin, ymax, xmin, xmax = yxhw_to_minmax(yxhw)
-
-    def cast(x):  # one rounding to the working type, then float32 products
-        return x.to(dtype).float()
-
-    ry = cast(_interp_matrix(ymin, ymax, h, s)).reshape(t, o, s, h)
-    rx = cast(_interp_matrix(xmin, xmax, w, s)).reshape(t, o, s, w)
-    tmp_f = cast(torch.einsum("tosh,thwc->toswc", ry, cast(frames)))
-    tf_roi = torch.einsum("toxw,toswc->tosxc", rx, tmp_f)
-    tmp_p = cast(torch.einsum("tosh,tohw->tosw", ry, cast(planes)))
-    tp_roi = torch.einsum("toxw,tosw->tosx", rx, tmp_p)
-    out = torch.cat([tf_roi, tp_roi[..., None]], dim=-1).reshape(t * o, s, s, 4)
-    out = out.to(dtype)
+    yxhw = _boxes_from_probs(probs.float(), obj_offset, o, scale, min_side)
+    out = roi_crop_pairs_reference(frames, probs, yxhw, out_size, dtype, obj_offset, o)
     if return_boxes:
-        return out, torch.stack([ymin, ymax, xmin, xmax], dim=1)
+        return out, torch.stack(yxhw_to_minmax(yxhw), dim=1)
     return out
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.ivosw_roi_crop_pairs_fusedbox
-    if fn.argtypes is None:
-        c_int, c_float, ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [
-            ptr, ptr,  # frames, probs
-            c_int, c_int, c_int, c_int,  # T, planes per frame, obj offset, O
-            c_int, c_int, c_int,  # H, W, S
-            c_float, c_float,  # min_side, grow
-            ptr, ptr, c_int,  # boxes, out, out_bf16
-            ptr,  # stream
-        ]
-        fn.restype = c_int
-    return fn
-
-
-def _check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
-    """Raise when a launch returned a CUDA error (a refused launch never
-    runs, and a later synchronize would not report it)."""
-    if err != 0:
-        lib.ivosw_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.ivosw_cuda_error_string.restype = ctypes.c_char_p
-        msg = lib.ivosw_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}: {msg}")
-
-
+# ------------------------------------------------------------- wrappers --
 def roi_crop_pairs_fusedbox(
     frames: torch.Tensor,
     probs: torch.Tensor,
@@ -147,51 +255,34 @@ def roi_crop_pairs_fusedbox(
 ):
     """All T×O pair crops with in-kernel boxes → [T·O, S, S, 4] in ``dtype``.
 
-    frames [T, H, W, 3] float32 and probs [T, P, H, W] float32, both
+    frames [T, H, W, 3] and probs [T, P, H, W], float32 or bfloat16, both
     contiguous; the crop uses prob planes ``obj_offset .. obj_offset+O-1``
-    (O = ``num_objects``, default all planes after the offset), so an
-    adapter's [T, O+1, H, W] output with background plane 0 is passed
-    whole with ``obj_offset=1``. ``return_boxes`` also returns the [T·O, 4]
-    float32 (ymin, ymax, xmin, xmax) boxes."""
+    (O = ``num_objects``, default all planes after the offset).
+    ``return_boxes`` also returns the [T·O, 4] float32 (ymin, ymax, xmin,
+    xmax) boxes."""
     args = (frames, probs, out_size, dtype, scale, min_side, obj_offset, num_objects)
-    if frames.device.type == "cpu" and probs.device.type == "cpu":
+    if _on_cpu(frames, probs):
         return roi_crop_pairs_fusedbox_reference(*args, return_boxes=return_boxes)
-    if frames.device.type != "cuda" or probs.device != frames.device:
-        raise ValueError(
-            f"frames on {frames.device} and probs on {probs.device}: "
-            "both must be on one CUDA device (or both on the CPU)"
-        )
-    if frames.dtype != torch.float32 or probs.dtype != torch.float32:
-        raise TypeError(f"need float32 frames/probs, got {frames.dtype}/{probs.dtype}")
-    if frames.dim() != 4 or frames.shape[3] != 3 or probs.dim() != 4:
-        raise ValueError(f"need frames [T,H,W,3], probs [T,P,H,W]; got "
-                         f"{tuple(frames.shape)}, {tuple(probs.shape)}")
-    t, h, w, _ = frames.shape
-    if probs.shape[0] != t or tuple(probs.shape[2:]) != (h, w):
-        raise ValueError(f"probs {tuple(probs.shape)} do not match frames "
-                         f"{tuple(frames.shape)}")
-    if not (frames.is_contiguous() and probs.is_contiguous()):
-        raise ValueError("frames and probs must be contiguous")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"output dtype must be bfloat16 or float32, got {dtype}")
-    if out_size < 2:
-        raise ValueError(f"out_size must be >= 2, got {out_size}")
+    t, h, w = _check_pair_inputs(frames, probs, out_size, dtype)
     o = _selected_planes(probs, obj_offset, num_objects)
 
-    from ivosw_tpu_torch.kernels import _build
-
-    lib = _build.load(_SOURCE)
-    fn = _bind(lib)
+    lib = _load(_SOURCE)
+    fn = _bind(lib, "ivosw_roi_crop_pairs_fusedbox", [
+        _ptr, _ptr, _c_int, _c_int,  # frames, probs, their bf16 flags
+        _c_int, _c_int, _c_int, _c_int,  # T, planes per frame, obj offset, O
+        _c_int, _c_int, _c_int,  # H, W, S
+        _c_float, _c_float,  # min_side, grow
+        _ptr, _ptr, _c_int,  # boxes, out, out_bf16
+        _ptr,  # stream
+    ])
     out = torch.empty((t * o, out_size, out_size, 4), dtype=dtype, device=frames.device)
     boxes = torch.empty((t * o, 4), dtype=torch.float32, device=frames.device)
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
     err = fn(
-        frames.data_ptr(), probs.data_ptr(),
-        t, probs.shape[1], obj_offset, o,
-        h, w, out_size,
+        frames.data_ptr(), probs.data_ptr(), _is_bf16(frames), _is_bf16(probs),
+        t, probs.shape[1], obj_offset, o, h, w, out_size,
         float(min_side), (scale - 1.0) / 2.0,
-        boxes.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
-        stream,
+        boxes.data_ptr(), out.data_ptr(), _is_bf16(out),
+        torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _check_launch(lib, err, "roi_crop_pairs_fusedbox")
     roi_crop_pairs_fusedbox.launches += 1
@@ -201,16 +292,133 @@ def roi_crop_pairs_fusedbox(
 roi_crop_pairs_fusedbox.launches = 0
 
 
+def roi_crop_pairs(
+    frames: torch.Tensor,
+    probs: torch.Tensor,
+    yxhw: torch.Tensor,
+    out_size: int = ROI_S,
+    dtype=torch.bfloat16,
+    obj_offset: int = 0,
+    num_objects: int | None = None,
+):
+    """All T×O pair crops in given yxhw boxes [T·O, 4] → [T·O, S, S, 4] in
+    ``dtype``; frames and probs as :func:`roi_crop_pairs_fusedbox` takes
+    them. The boxes become (ymin, ymax, xmin, xmax) here, outside the
+    kernel, as ``roi_pallas.py:320-321`` does."""
+    if _on_cpu(frames, probs, yxhw):
+        return roi_crop_pairs_reference(frames, probs, yxhw, out_size, dtype, obj_offset,
+                                        num_objects)
+    t, h, w = _check_pair_inputs(frames, probs, out_size, dtype)
+    o = _selected_planes(probs, obj_offset, num_objects)
+    if tuple(yxhw.shape) != (t * o, 4):
+        raise ValueError(f"need yxhw [{t * o}, 4], got {tuple(yxhw.shape)}")
+    boxes = torch.stack(yxhw_to_minmax(yxhw.float()), dim=1).contiguous()
+
+    lib = _load(_PAIRS_SOURCE)
+    fn = _bind(lib, "ivosw_roi_crop_pairs", [
+        _ptr, _ptr, _c_int, _c_int,  # frames, probs, their bf16 flags
+        _c_int, _c_int, _c_int, _c_int,  # T, planes per frame, obj offset, O
+        _c_int, _c_int, _c_int,  # H, W, S
+        _ptr, _ptr, _c_int,  # boxes, out, out_bf16
+        _ptr,  # stream
+    ])
+    out = torch.empty((t * o, out_size, out_size, 4), dtype=dtype, device=frames.device)
+    err = fn(
+        frames.data_ptr(), probs.data_ptr(), _is_bf16(frames), _is_bf16(probs),
+        t, probs.shape[1], obj_offset, o, h, w, out_size,
+        boxes.data_ptr(), out.data_ptr(), _is_bf16(out),
+        torch.cuda.current_stream(frames.device).cuda_stream,
+    )
+    _check_launch(lib, err, "roi_crop_pairs")
+    roi_crop_pairs.launches += 1
+    return out
+
+
+roi_crop_pairs.launches = 0
+
+
+def roi_crop_pairs_premat(
+    frames: torch.Tensor,
+    probs: torch.Tensor,
+    yxhw: torch.Tensor | None = None,
+    out_size: int = ROI_S,
+    dtype=torch.bfloat16,
+    obj_offset: int = 0,
+    num_objects: int | None = None,
+    ry: torch.Tensor | None = None,
+    rx: torch.Tensor | None = None,
+):
+    """The pair crop from interpolation matrices → [T·O, S, S, 4] in
+    ``dtype``: Ry/Rx built from yxhw boxes [T·O, 4] and cast to ``dtype``
+    (as ``roi_pallas.py:599-601``), or given as ``ry`` [T·O, S, H] and
+    ``rx`` [T·O, S, W] (cast to ``dtype``; then ``out_size`` is their S)."""
+    t, h, w, _ = frames.shape
+    if yxhw is not None:
+        if ry is not None or rx is not None:
+            raise ValueError("pass yxhw or ry/rx, not both")
+        ry, rx = interp_matrices(yxhw, h, w, out_size, dtype)
+    elif ry is None or rx is None:
+        raise ValueError("pass yxhw or both ry and rx")
+    ry, rx = ry.to(dtype), rx.to(dtype)
+    if _on_cpu(frames, probs, ry, rx):
+        return roi_crop_pairs_premat_reference(frames, probs, ry, rx, dtype, obj_offset,
+                                               num_objects)
+    s = ry.shape[1]
+    _check_pair_inputs(frames, probs, s, dtype)
+    o = _selected_planes(probs, obj_offset, num_objects)
+    if tuple(ry.shape) != (t * o, s, h) or tuple(rx.shape) != (t * o, s, w):
+        raise ValueError(f"need ry [{t * o}, S, {h}] and rx [{t * o}, S, {w}]; got "
+                         f"{tuple(ry.shape)}, {tuple(rx.shape)}")
+    ry, rx = ry.contiguous(), rx.contiguous()
+
+    lib = _load(_PREMAT_SOURCE)
+    fn = _bind(lib, "ivosw_roi_crop_pairs_premat", [
+        _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,  # ry, rx, frames, probs, bf16 flags
+        _c_int, _c_int, _c_int, _c_int,  # T, planes per frame, obj offset, O
+        _c_int, _c_int, _c_int,  # H, W, S
+        _ptr, _ptr, _c_int,  # scratch, out, working type bf16
+        _ptr,  # stream
+    ])
+    scratch = torch.empty((t * o, 4, s, w), dtype=dtype, device=frames.device)
+    out = torch.empty((t * o, s, s, 4), dtype=dtype, device=frames.device)
+    err = fn(
+        ry.data_ptr(), rx.data_ptr(), frames.data_ptr(), probs.data_ptr(),
+        _is_bf16(frames), _is_bf16(probs), t, probs.shape[1], obj_offset, o, h, w, s,
+        scratch.data_ptr(), out.data_ptr(), _is_bf16(out),
+        torch.cuda.current_stream(frames.device).cuda_stream,
+    )
+    _check_launch(lib, err, "roi_crop_pairs_premat")
+    roi_crop_pairs_premat.launches += 1
+    return out
+
+
+roi_crop_pairs_premat.launches = 0
+
+IMPLS = ("auto", "pallas", "einsum")
+
+
 def roi_crop_pairs_from_probs(
     frames, probs, out_size: int = ROI_S, dtype=torch.bfloat16,
-    obj_offset: int = 0, num_objects: int | None = None,
+    obj_offset: int = 0, num_objects: int | None = None, impl: str = "auto",
 ):
-    """Scoring-path crop: prob maps → ROI boxes → (tf_roi [T·O,S,S,3],
-    tp_roi [T·O,S,S,1]), views of one [T·O,S,S,4] tensor. CUDA tensors go to
-    the kernel, CPU tensors to the plain version."""
-    out = roi_crop_pairs_fusedbox(
-        frames, probs, out_size, dtype, obj_offset=obj_offset, num_objects=num_objects
-    )
+    """Scoring-round crop: prob maps → ROI boxes → (tf_roi [T·O,S,S,3],
+    tp_roi [T·O,S,S,1]), views of one [T·O,S,S,4] tensor in ``dtype``.
+
+    ``impl``: ``"auto"`` / ``"pallas"`` → the fused-box kernel (boxes in
+    the kernel); ``"einsum"`` → the two-stage round, the boxes of
+    ``probs > 0.5`` by :func:`ivosw_tpu_torch.ops.roi.mask_to_yxhw`, then the
+    given-box kernel :func:`roi_crop_pairs`. CUDA tensors go to the
+    kernels, CPU tensors to their plain versions."""
+    if impl not in IMPLS:
+        raise NotImplementedError(f"roi_crop_pairs_from_probs impl={impl!r}")
+    if impl == "einsum":
+        o = _selected_planes(probs, obj_offset, num_objects)
+        yxhw = _boxes_from_probs(probs, obj_offset, o, 1.5, 128.0)
+        out = roi_crop_pairs(frames, probs, yxhw, out_size, dtype, obj_offset, o)
+    else:
+        out = roi_crop_pairs_fusedbox(
+            frames, probs, out_size, dtype, obj_offset=obj_offset, num_objects=num_objects
+        )
     return out[..., :3], out[..., 3:]
 
 
@@ -221,35 +429,14 @@ def roi_crop_reference(images: torch.Tensor, yxhw: torch.Tensor, out_size: int =
     return _roi_crop_einsum(images.float(), yxhw.float(), out_size, torch.float32)
 
 
-def _bind_crop(lib: ctypes.CDLL):
-    fn = lib.ivosw_roi_crop
-    if fn.argtypes is None:
-        c_int, ptr = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [
-            ptr,  # images
-            c_int, c_int, c_int, c_int, c_int,  # B, H, W, C, S
-            ptr, ptr,  # boxes, out
-            ptr,  # stream
-        ]
-        fn.restype = c_int
-    return fn
-
-
 def roi_crop(images: torch.Tensor, yxhw: torch.Tensor, out_size: int = ROI_S) -> torch.Tensor:
     """Bilinear crop of every image inside its box → [B, S, S, C] float32.
 
     images [B, H, W, C] float32 and yxhw [B, 4] float32 (y, x, h, w) boxes,
     both contiguous and on one device. The boxes become (ymin, ymax, xmin,
     xmax) here, outside the kernel, as ``roi_pallas.py:72-73`` does."""
-    if images.requires_grad or yxhw.requires_grad:
-        raise ValueError("roi_crop has no backward: pass inputs that do not require grad")
-    if images.device.type == "cpu" and yxhw.device.type == "cpu":
+    if _on_cpu(images, yxhw):
         return roi_crop_reference(images, yxhw, out_size)
-    if images.device.type != "cuda" or yxhw.device != images.device:
-        raise ValueError(
-            f"images on {images.device} and boxes on {yxhw.device}: "
-            "both must be on one CUDA device (or both on the CPU)"
-        )
     if images.dtype != torch.float32 or yxhw.dtype != torch.float32:
         raise TypeError(f"need float32 images/boxes, got {images.dtype}/{yxhw.dtype}")
     if images.dim() != 4 or tuple(yxhw.shape) != (images.shape[0], 4):
@@ -262,12 +449,16 @@ def roi_crop(images: torch.Tensor, yxhw: torch.Tensor, out_size: int = ROI_S) ->
     b, h, w, c = images.shape
     boxes = torch.stack(yxhw_to_minmax(yxhw), dim=1).contiguous()
 
-    from ivosw_tpu_torch.kernels import _build
-
-    lib = _build.load(_CROP_SOURCE)
+    lib = _load(_CROP_SOURCE)
+    fn = _bind(lib, "ivosw_roi_crop", [
+        _ptr,  # images
+        _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, C, S
+        _ptr, _ptr,  # boxes, out
+        _ptr,  # stream
+    ])
     out = torch.empty((b, out_size, out_size, c), dtype=torch.float32, device=images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
-    err = _bind_crop(lib)(
+    err = fn(
         images.data_ptr(), b, h, w, c, out_size, boxes.data_ptr(), out.data_ptr(), stream
     )
     _check_launch(lib, err, "roi_crop")

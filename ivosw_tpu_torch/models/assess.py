@@ -6,9 +6,12 @@ into conv1 (``x = conv1(f) + conv1_p(p)``) → global mean of r5 → FC
 2048→1 in float32. :func:`assess_forward` is the training path: box,
 crop (:func:`ivosw_tpu_torch.kernels.roi_crop.roi_crop_best`) and the
 unfolded net with train-mode BatchNorm. :func:`score_clip` scores all T×O
-(frame, object) pairs of a clip in one pass: the fused-box crop kernel
-(:mod:`ivosw_tpu_torch.kernels.roi_crop`) writes bfloat16 NHWC crops, and
-their NCHW permute is already a channels_last tensor for the convs.
+(frame, object) pairs of a clip in one pass, always with the net in eval
+mode (as the JAX package applies it with ``train=False``): the crop
+kernels (:mod:`ivosw_tpu_torch.kernels.roi_crop`; the fused-box kernel, or
+the two-stage round of boxes then the given-box pair kernel) write
+bfloat16 NHWC crops, and their NCHW permute is already a channels_last
+tensor for the convs.
 
 ``fold=True`` is the inference variant of
 :func:`ivosw_tpu_torch.models.fold.fold_assess_variables`: one bias-carrying
@@ -133,29 +136,43 @@ def score_clip(
     obj_valid: torch.Tensor,
     chunk: int | None = None,
     obj_offset: int = 0,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Score every (frame, object) pair of a clip → [T, O] float32.
 
-    frames [T, H, W, 3] float32; probs [T, P, H, W] float32 whose planes
-    ``obj_offset .. obj_offset+O-1`` are the objects (O = len(obj_valid));
-    obj_valid [O] 1/0 zeroes padded object slots. ``chunk`` < T crops and
-    encodes chunk-frame slices one after the other; it mirrors the JAX
-    package's signature and only tests pass it (the scoring path,
-    ``predict_clip_quality``, chunks and pads the tail itself)."""
+    frames [T, H, W, 3] and probs [T, P, H, W], float32 or bfloat16, whose
+    planes ``obj_offset .. obj_offset+O-1`` are the objects (O =
+    len(obj_valid)); obj_valid [O] 1/0 zeroes padded object slots. The net
+    scores in eval mode whatever mode the caller left it in, and is handed
+    back in that mode (its BatchNorm statistics do not move).
+
+    ``impl`` picks the crop as the JAX package's does: ``"auto"`` /
+    ``"pallas"`` the fused-box kernel, ``"einsum"`` the two-stage round
+    (:func:`ivosw_tpu_torch.kernels.roi_crop.roi_crop_pairs_from_probs`).
+    ``chunk`` < T crops and encodes chunk-frame slices one after the other;
+    it mirrors the JAX package's signature and only tests pass it (the
+    scoring path, ``predict_clip_quality``, chunks and pads the tail
+    itself)."""
     t = probs.shape[0]
-    if chunk and t > chunk:
-        return torch.cat([
-            _score_clip_body(assess_net, frames[s:e], probs[s:e], obj_valid, obj_offset)
-            for s, e in _chunk_slices(t, chunk)
-        ], dim=0)
-    return _score_clip_body(assess_net, frames, probs, obj_valid, obj_offset)
+    was_training = assess_net.training
+    assess_net.eval()
+    try:
+        if chunk and t > chunk:
+            return torch.cat([
+                _score_clip_body(assess_net, frames[s:e], probs[s:e], obj_valid, obj_offset,
+                                 impl)
+                for s, e in _chunk_slices(t, chunk)
+            ], dim=0)
+        return _score_clip_body(assess_net, frames, probs, obj_valid, obj_offset, impl)
+    finally:
+        assess_net.train(was_training)
 
 
-def _score_clip_body(assess_net, frames, probs, obj_valid, obj_offset):
+def _score_clip_body(assess_net, frames, probs, obj_valid, obj_offset, impl):
     t, o = probs.shape[0], obj_valid.shape[0]
     tf_roi, tp_roi = roi_crop_pairs_from_probs(
         frames, probs, ROI_SIZE, dtype=assess_net.dtype,
-        obj_offset=obj_offset, num_objects=o,
+        obj_offset=obj_offset, num_objects=o, impl=impl,
     )
     q = assess_net(tf_roi, tp_roi)
     return q.reshape(t, o) * obj_valid[None, :]
@@ -168,11 +185,12 @@ def score_clip_folded(
     obj_valid: torch.Tensor,
     chunk: int | None = None,
     obj_offset: int = 0,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """:func:`score_clip` on a BN-folded AssessNet (``fold=True``)."""
     if not assess_net.fold:
         raise ValueError("score_clip_folded needs AssessNet(fold=True)")
-    return score_clip(assess_net, frames, probs, obj_valid, chunk, obj_offset)
+    return score_clip(assess_net, frames, probs, obj_valid, chunk, obj_offset, impl)
 
 
 def mean_object_quality(scores: torch.Tensor, obj_valid: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,7 @@ the port's modules, whose names follow the JAX trees. Layout changes only:
   → ``weight``/``bias``/``running_mean``/``running_var``.
 - LSTM ``w_ih``/``w_hh`` [H, 4H] → ``weight_ih``/``weight_hh`` [4H, H], gate
   order i, f, g, o unchanged.
+- GroupNorm ``scale``/``bias`` → ``weight``/``bias`` (TAPNet).
 
 :func:`assess_numpy_from_state_dict` is the inverse for AssessNet, so a
 net trained by the port can be held against the JAX package's trees.
@@ -105,4 +106,32 @@ def brain_state_dict_from_numpy(params: Dict[str, Any]) -> StateDict:
         out[f"{name}.bias"] = _t(params[name]["bias"])
     out["lstm.weight_ih"] = _t(np.asarray(params["lstm"]["w_ih"]).T)
     out["lstm.weight_hh"] = _t(np.asarray(params["lstm"]["w_hh"]).T)
+    return out
+
+
+def tapnet_state_dict_from_numpy(params: Dict[str, Any]) -> StateDict:
+    """TAPNet params (the flax tree ``frame_encoder``/``anet``/``tnet``, with
+    or without a top-level ``"params"``) → state dict of
+    :class:`ivosw_tpu_torch.models.vos.tapnet.TAPNet`: conv kernels HWIO →
+    OIHW, GroupNorm ``scale`` → ``weight``, biases as they are."""
+    params = params.get("params", params)
+    out: StateDict = {}
+
+    def walk(node, prefix):
+        for name, child in node.items():
+            path = prefix + name
+            if not isinstance(child, dict):
+                x = np.asarray(child, dtype=np.float32)
+                if name == "kernel":
+                    out[prefix + "weight"] = _t(x.transpose(3, 2, 0, 1))
+                elif name == "scale":
+                    out[prefix + "weight"] = _t(x)
+                elif name == "bias":
+                    out[prefix + "bias"] = _t(x)
+                else:
+                    raise ValueError(f"{path}: unexpected entry")
+            else:
+                walk(child, path + ".")
+
+    walk(params, "")
     return out

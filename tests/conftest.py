@@ -71,3 +71,6 @@ def pytest_configure(config):
         "markers",
         "requires_cuda: needs a CUDA card and nvcc; skips on a host without them",
     )
+    config.addinivalue_line(
+        "markers", "slow: long runs, left out of the default test run (-m 'not slow')"
+    )

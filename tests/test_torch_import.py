@@ -148,11 +148,21 @@ def test_kernel_wrapper_refuses_other_devices():
     assert out.shape == (1, 4, 4, 4) and roi_crop_pairs_fusedbox.launches == before
 
 
-def test_unported_backbones_name_their_slice():
+def test_unported_backbones_name_their_slice(tmp_path):
+    """matchnet/ipnet name their slice; tapnet builds, on the CPU when
+    asked, with its prob maps in bf16 under assess_net.bf16_inputs."""
     from ivosw_tpu_torch.core.config import Config
     from ivosw_tpu_torch.eval.backbones import build_backbone
+    from ivosw_tpu_torch.models.vos.tapnet import TAPNetAdapter
 
-    for name, slice_name in (("tapnet", "TAPNet"), ("matchnet", "matchnet"), ("ipnet", "ipnet")):
+    for name, slice_name in (("matchnet", "matchnet"), ("ipnet", "ipnet")):
         with pytest.raises(NotImplementedError, match=slice_name):
             build_backbone(Config(vos=name), None)
+    for bf16 in (False, True):
+        cfg = Config(vos="tapnet", ckpt_dir=str(tmp_path))
+        cfg.assess_net.bf16_inputs = bf16
+        adapter = build_backbone(cfg, None, "cpu")
+        assert isinstance(adapter, TAPNetAdapter) and adapter.device == torch.device("cpu")
+        assert adapter.qa_dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert next(adapter.net.parameters()).device.type == "cpu"
     assert ivosw_tpu_torch.__version__

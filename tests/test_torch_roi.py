@@ -174,3 +174,82 @@ def test_roi_crop_wrapper_contract():
         port_kernel.roi_crop(images.to("meta"), yxhw.to("meta"), 8)
     with pytest.raises(ValueError, match="no backward"):
         port_kernel.roi_crop(images.requires_grad_(), yxhw, 8)
+
+
+def _pair_boxes(t, o, h, w, seed):
+    """yxhw [T·O, 4] of edge-case masks with the last three pairs' boxes
+    far outside the image, straddling the bottom edge and around it."""
+    masks = edge_case_probs(t, o, h, w, seed=seed).reshape(t * o, h, w) > 0.5
+    yxhw = np.array(jax_roi.mask_to_yxhw(jnp.asarray(masks), scale=1.5))
+    yxhw[-3:] = [[-40.0, -60.0, 20.0, 30.0], [h + 3.0, w / 2, 50.0, 25.0],
+                 [h / 2, w / 2, 4.0 * h, 4.0 * w]]
+    return yxhw.astype(np.float32)
+
+
+@pytest.mark.parametrize("h,w,s", [(48, 64, 64), (50, 70, 32), (192, 256, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("crop", ["pairs", "premat"])
+def test_pair_crops_match_pallas_and_einsum(h, w, s, dtype, crop):
+    """The plain given-box pair crop (``roi_crop_pairs``) and the plain
+    matrix crop (``roi_crop_pairs_premat``) on the CPU against the JAX
+    einsum path and the matching Pallas kernel in interpret mode, T=2, O=4,
+    the probs read with object offset 1 out of [T, O+1, H, W]."""
+    t, o = 2, 4
+    probs = edge_case_probs(t, o + 1, h, w, seed=w)
+    frames = frames_like(t, h, w)
+    yxhw = _pair_boxes(t, o, h, w, seed=h)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    atol = F32_ATOL if dtype == "float32" else BF16_VS_JAX_ATOL
+    wrapper = port_kernel.roi_crop_pairs if crop == "pairs" else port_kernel.roi_crop_pairs_premat
+    pallas_fn = (jax_roi_pallas.roi_crop_pairs_pallas if crop == "pairs"
+                 else jax_roi_pallas.roi_crop_pairs_pallas_premat)
+
+    before = wrapper.launches
+    got = wrapper(torch.from_numpy(frames), torch.from_numpy(probs), torch.from_numpy(yxhw), s,
+                  tdt, obj_offset=1)
+    assert wrapper.launches == before  # the plain version on the CPU
+    assert got.dtype == tdt and got.shape == (t * o, s, s, 4)
+    got = got.float().numpy()
+    jprobs = jnp.asarray(probs[:, 1:])
+    tf, tp = jax_roi_pallas.roi_crop_pairs_einsum(jnp.asarray(frames), jprobs, jnp.asarray(yxhw),
+                                                  s, dtype=jdt)
+    einsum = np.concatenate([np.asarray(tf, np.float32), np.asarray(tp, np.float32)], -1)
+    np.testing.assert_allclose(got, einsum, rtol=0, atol=atol)
+    pallas = np.asarray(pallas_fn(jnp.asarray(frames), jprobs, jnp.asarray(yxhw), s, dtype=jdt,
+                                  interpret=True), np.float32)
+    jax_gap = float(np.abs(pallas - einsum).max()) if dtype == "float32" else 0.0
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=atol + jax_gap)
+
+
+@pytest.mark.parametrize("inputs", ["float32", "bfloat16"])
+def test_crop_dispatch_impls_match_jax(inputs):
+    """roi_crop_pairs_from_probs: impl="einsum" (mask_to_yxhw, then the pair
+    crop) and impl="pallas" (fused box) against the JAX dispatch with the
+    same impl (its fused-box kernel in interpret mode), frames and probs in
+    ``inputs`` (assess_net.bf16_inputs), bfloat16 crops."""
+    t, o, h, w, s = 2, 3, 48, 64, 64
+    probs = edge_case_probs(t, o + 1, h, w, seed=11)
+    frames = frames_like(t, h, w)
+    jin, tin = getattr(jnp, inputs), getattr(torch, inputs)
+    jframes, jprobs = jnp.asarray(frames).astype(jin), jnp.asarray(probs[:, 1:]).astype(jin)
+    fused = jax_roi_pallas.roi_crop_pairs_pallas_fusedbox
+    for impl in ("einsum", "pallas"):
+        jax_roi_pallas.roi_crop_pairs_pallas_fusedbox = (
+            lambda *a, **k: fused(*a, **{**k, "interpret": True}))
+        try:
+            ref = jax_roi_pallas.roi_crop_pairs_from_probs(jframes, jprobs, s,
+                                                           dtype=jnp.bfloat16, impl=impl)
+        finally:
+            jax_roi_pallas.roi_crop_pairs_pallas_fusedbox = fused
+        got = port_kernel.roi_crop_pairs_from_probs(
+            torch.from_numpy(frames).to(tin), torch.from_numpy(probs).to(tin), s,
+            torch.bfloat16, obj_offset=1, num_objects=o, impl=impl,
+        )
+        for g, r in zip(got, ref):
+            assert g.dtype == torch.bfloat16
+            np.testing.assert_allclose(g.float().numpy(), np.asarray(r, np.float32), rtol=0,
+                                       atol=BF16_VS_JAX_ATOL if impl == "einsum"
+                                       else port_kernel.BF16_CROP_ATOL)
+    with pytest.raises(NotImplementedError):
+        port_kernel.roi_crop_pairs_from_probs(torch.from_numpy(frames), torch.from_numpy(probs),
+                                              s, impl="nope")
