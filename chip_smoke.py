@@ -56,7 +56,12 @@ with its own seconds:
    (``affine_grid`` + ``grid_sample``) / bound times;
 11. kernel_roi_crop_pairs_premat: the matrix crop likewise (bf16 at the
    full shape, float32 at T=4), with bilinear matrices and with seeded
-   random dense ones; library time ``torch.bmm`` of the two stages;
+   random dense ones; library time ``torch.bmm`` of the two stages; the
+   bf16 kernel's achieved TFLOP/s, its bound over its time
+   (``bound_share``), the device time of its two stages and of the
+   library's products and layout change (``torch.profiler``), and its time
+   on the same crop with W zero-padded to 856, where every row is 16-byte
+   aligned (``aligned_kernel_ms``);
 12. tapnet_small: one seeded TAPNet and one 3-round episode (48×64, T=8,
    O=2, the same scribbles) on the card and on the host: probabilities
    within a stated bound, labels equal but within that bound of a decision,
@@ -858,6 +863,25 @@ def phase_kernel_roi_crop_pairs(torch, dev, kinfo, T):
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
 
 
+def device_ms_by_kernel(torch, fn, calls: int = 5):
+    """Mean device ms of each kernel ``fn`` launches and the launches the
+    trace holds, over ``calls`` calls after one warm-up (``torch.profiler``,
+    device activity only: with host activity as well, as in profile_device,
+    ``key_averages`` left the kernels launched through ctypes out). The
+    mean is over the launches traced: in a full run the trace held 4 of 5
+    launches of a call's first kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: {"ms": e.device_time_total / 1e3 / e.count, "launches": e.count}
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def bmm_library_crop(torch, x, ry, rx):
     """The matrix crop as two ``torch.bmm`` (cuBLAS) stages over the pairs:
     [P, S, H] @ [P, H, W·4], then [P, S, W] @ [P, W, S·4] → [P, S, S, 4];
@@ -912,10 +936,23 @@ def phase_kernel_roi_crop_pairs_premat(torch, dev, kinfo, T):
                   dim=-1)
     before = roi_crop_pairs_premat.launches
     kernel_ms = cuda_ms(
-        lambda: roi_crop_pairs_premat(frames, probs, dtype=torch.bfloat16, ry=ry, rx=rx, **kw), 5)
+        lambda: roi_crop_pairs_premat(frames, probs, dtype=torch.bfloat16, ry=ry, rx=rx, **kw), 20)
     plain_ms = cuda_ms(
         lambda: roi_crop_pairs_premat_reference(frames, probs, ry, rx, torch.bfloat16, **kw), 3)
-    library_ms = cuda_ms(lambda: bmm_library_crop(torch, x, ry, rx), 5)
+    library_ms = cuda_ms(lambda: bmm_library_crop(torch, x, ry, rx), 20)
+    # the same crop with W padded by zeros to a multiple of 8: every operand's
+    # rows 16-byte aligned, so every copy is a 16-byte one (1708-byte rows
+    # take 4-byte copies)
+    pw = -W % 8
+    padded = (torch.nn.functional.pad(frames, (0, 0, 0, pw)),
+              torch.nn.functional.pad(probs, (0, pw)), torch.nn.functional.pad(rx, (0, pw)))
+    aligned_ms = cuda_ms(lambda: roi_crop_pairs_premat(
+        padded[0], padded[1], dtype=torch.bfloat16, ry=ry, rx=padded[2], **kw), 20)
+    split = {  # the kernel's two stages; the library's two products and layout change
+        "kernel": device_ms_by_kernel(torch, lambda: roi_crop_pairs_premat(
+            frames, probs, dtype=torch.bfloat16, ry=ry, rx=rx, **kw)),
+        "library": device_ms_by_kernel(torch, lambda: bmm_library_crop(torch, x, ry, rx)),
+    }
     timing_launches = roi_crop_pairs_premat.launches - before
 
     flops = 2 * T * O * (S * H * W + S * S * W) * 4
@@ -927,6 +964,9 @@ def phase_kernel_roi_crop_pairs_premat(torch, dev, kinfo, T):
         "kernel_roi_crop_pairs_premat", tic, shape={"T": T, "O": O, "H": H, "W": W, "S": S},
         errors=errs, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bound_ms, bytes=bytes_total, flops=flops, timing_launches=timing_launches,
+        tflops=flops / kernel_ms / 1e9, library_tflops=flops / library_ms / 1e9,
+        bound_share=bound_ms / kernel_ms, device_ms_by_kernel=split,
+        aligned_kernel_ms={"W": W + pw, "ms": aligned_ms},
     )
     return {"max_abs_err": errs["bilinear_bfloat16"]["max_abs_err"], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,

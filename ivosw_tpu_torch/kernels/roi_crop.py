@@ -44,7 +44,9 @@ float32 or bfloat16 (``assess_net.bf16_inputs``); an adapter's
   dense matrices the float32 sums of H (then W) terms run in another order
   than the plain version's, a bfloat16 intermediate may round the other way
   (one ulp), and the bound is :data:`PREMAT_BF16_ATOL` (float32:
-  :data:`PREMAT_F32_RTOL` of the largest output).
+  :data:`PREMAT_F32_RTOL` of the largest output). In bfloat16 both products
+  run on the tensor cores, on the operands of :func:`premat_mma_operands`;
+  in float32 on the CUDA cores (TF32 would not match float32 sums).
 - :func:`roi_crop_pairs_from_probs` is the scoring round's dispatch, the
   counterpart of ``roi_pallas.py:518``: ``impl="auto"`` or ``"pallas"`` →
   the fused-box kernel; ``"einsum"`` → the two-stage round,
@@ -337,6 +339,24 @@ def roi_crop_pairs(
 roi_crop_pairs.launches = 0
 
 
+def premat_mma_operands(frames, probs, ry, rx):
+    """The operands of the matrix crop's bfloat16 (tensor-core) route, which
+    copies pairs of bfloat16 values from 4-byte aligned rows: float32 frames
+    and planes rounded to bfloat16 (the rounding on load, once), an odd H or
+    W padded with zeros to even (zero weights in Ry/Rx, frames and planes:
+    the same crop), and a tensor that starts off a 4-byte boundary copied.
+    Any device; returns (frames, probs, ry, rx)."""
+    frames, probs = frames.to(torch.bfloat16), probs.to(torch.bfloat16)
+    ry, rx = ry.to(torch.bfloat16), rx.to(torch.bfloat16)
+    ph, pw = frames.shape[1] % 2, frames.shape[2] % 2
+    if ph or pw:
+        frames = torch.nn.functional.pad(frames, (0, 0, 0, pw, 0, ph))
+        probs = torch.nn.functional.pad(probs, (0, pw, 0, ph))
+        ry = torch.nn.functional.pad(ry, (0, ph))
+        rx = torch.nn.functional.pad(rx, (0, pw))
+    return tuple(x if x.data_ptr() % 4 == 0 else x.clone() for x in (frames, probs, ry, rx))
+
+
 def roi_crop_pairs_premat(
     frames: torch.Tensor,
     probs: torch.Tensor,
@@ -370,21 +390,26 @@ def roi_crop_pairs_premat(
         raise ValueError(f"need ry [{t * o}, S, {h}] and rx [{t * o}, S, {w}]; got "
                          f"{tuple(ry.shape)}, {tuple(rx.shape)}")
     ry, rx = ry.contiguous(), rx.contiguous()
+    tmp_ld = w
+    if dtype == torch.bfloat16:
+        frames, probs, ry, rx = premat_mma_operands(frames, probs, ry, rx)
+        h, w = frames.shape[1], frames.shape[2]
+        tmp_ld = -(-w // 8) * 8  # 16-byte rows: stage 2 reads them in 16-byte copies
 
     lib = _load(_PREMAT_SOURCE)
     fn = _bind(lib, "ivosw_roi_crop_pairs_premat", [
         _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,  # ry, rx, frames, probs, bf16 flags
         _c_int, _c_int, _c_int, _c_int,  # T, planes per frame, obj offset, O
         _c_int, _c_int, _c_int,  # H, W, S
-        _ptr, _ptr, _c_int,  # scratch, out, working type bf16
+        _ptr, _c_int, _ptr, _c_int,  # scratch, its row stride, out, working type bf16
         _ptr,  # stream
     ])
-    scratch = torch.empty((t * o, 4, s, w), dtype=dtype, device=frames.device)
+    scratch = torch.empty((t * o, 4, s, tmp_ld), dtype=dtype, device=frames.device)
     out = torch.empty((t * o, s, s, 4), dtype=dtype, device=frames.device)
     err = fn(
         ry.data_ptr(), rx.data_ptr(), frames.data_ptr(), probs.data_ptr(),
         _is_bf16(frames), _is_bf16(probs), t, probs.shape[1], obj_offset, o, h, w, s,
-        scratch.data_ptr(), out.data_ptr(), _is_bf16(out),
+        scratch.data_ptr(), tmp_ld, out.data_ptr(), _is_bf16(out),
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _check_launch(lib, err, "roi_crop_pairs_premat")

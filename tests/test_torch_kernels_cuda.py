@@ -134,12 +134,16 @@ def test_pair_kernel_matches_plain(cuda, h, w, s, dtype, inputs):
     assert float((out.float() - ref.float()).abs().max()) <= atol
 
 
-@pytest.mark.parametrize("h,w,s", [(48, 64, 64), (50, 70, 32), (192, 256, 256)])
+@pytest.mark.parametrize("h,w,s", [(48, 64, 64), (50, 70, 32), (192, 256, 256),
+                                   (480, 854, 256), (49, 71, 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("matrices", ["bilinear", "random"])
 def test_premat_kernel_matches_plain(cuda, h, w, s, dtype, matrices):
     """The kernel reads the given matrices: bilinear ones from the boxes,
-    and seeded random dense ones (rows summing to about 1)."""
+    and seeded random dense ones (rows summing to about 1). 480×854 is the
+    main width: 1708-byte rows, K tails of 480 and 854 against 32-deep
+    steps, planes off 16-byte boundaries; 49×71 takes the bf16 route's
+    padding to even sizes."""
     from ivosw_tpu_torch.kernels.roi_crop import (
         PAIR_BF16_ATOL,
         PREMAT_BF16_ATOL,

@@ -221,6 +221,46 @@ def test_pair_crops_match_pallas_and_einsum(h, w, s, dtype, crop):
     np.testing.assert_allclose(got, pallas, rtol=0, atol=atol + jax_gap)
 
 
+@pytest.mark.parametrize("h,w", [(49, 71), (48, 63), (50, 70)])
+@pytest.mark.parametrize("matrices", ["bilinear", "random"])
+def test_premat_mma_operands_keep_the_crop(h, w, matrices):
+    """The matrix crop's bfloat16 tensor-core route reads the operands of
+    ``premat_mma_operands``: bfloat16, even H and W, every tensor 4-byte
+    aligned (here frames whose storage starts 2 bytes off), float32 planes
+    rounded once. The plain crop of those operands is the crop of the
+    given ones, within the kernel's bounds (a zero pad changes no sum; the
+    float32 einsums may run in another order)."""
+    t, o, s = 2, 3, 24
+    probs = torch.from_numpy(edge_case_probs(t, o + 1, h, w, seed=h))
+    flat = torch.from_numpy(frames_like(t, h, w)).flatten()
+    frames = torch.cat([flat[:1], flat]).to(torch.bfloat16)[1:].view(t, h, w, 3)
+    assert frames.data_ptr() % 4 == 2
+    yxhw = torch.from_numpy(_pair_boxes(t, o, h, w, seed=w))
+    if matrices == "bilinear":
+        ry, rx = port_kernel.interp_matrices(yxhw, h, w, s, torch.bfloat16)
+    else:
+        rng = np.random.default_rng(s)
+        ry = torch.from_numpy(rng.random((t * o, s, h), dtype=np.float32) * (2.0 / h))
+        rx = torch.from_numpy(rng.random((t * o, s, w), dtype=np.float32) * (2.0 / w))
+        ry, rx = ry.to(torch.bfloat16), rx.to(torch.bfloat16)
+
+    ops = port_kernel.premat_mma_operands(frames, probs, ry, rx)
+    for x in ops:
+        assert x.dtype == torch.bfloat16 and x.is_contiguous() and x.data_ptr() % 4 == 0
+    f, p, ry2, rx2 = ops
+    h2, w2 = f.shape[1], f.shape[2]
+    assert (h2, w2) == (h + h % 2, w + w % 2)
+    assert p.shape == (t, o + 1, h2, w2) and ry2.shape == (t * o, s, h2)
+    assert rx2.shape == (t * o, s, w2)
+    ref = port_kernel.roi_crop_pairs_premat_reference(frames, probs, ry, rx, torch.bfloat16,
+                                                      obj_offset=1)
+    got = port_kernel.roi_crop_pairs_premat_reference(f, p, ry2, rx2, torch.bfloat16,
+                                                      obj_offset=1)
+    atol = (port_kernel.PAIR_BF16_ATOL if matrices == "bilinear"
+            else port_kernel.PREMAT_BF16_ATOL)
+    assert float((got.float() - ref.float()).abs().max()) <= atol
+
+
 @pytest.mark.parametrize("inputs", ["float32", "bfloat16"])
 def test_crop_dispatch_impls_match_jax(inputs):
     """roi_crop_pairs_from_probs: impl="einsum" (mask_to_yxhw, then the pair
