@@ -13,7 +13,10 @@ with its own seconds:
    on seeded prob maps with empty, tiny, border-touching and out-of-range
    masks, O=3 objects (+ background plane, object offset 1), 480×854, 256²
    bf16 crops: box mismatches (must be 0), crop error (bf16 bound and
-   float32 bound), kernel / plain / library / bound times. Once at the
+   float32 bound), kernel / plain / library / bound times, and the call's
+   device time alone (``device_ms``, box pass, box reduction and crop pass
+   apart in ``device_ms_by_kernel``) with ``bound_share`` (bound over device
+   time). Once at the
    shape of one launch on the main path (T=32 frames, the scoring chunk;
    these numbers fill the kernel table) and once on the whole T=64 clip;
 3. small: the wild/ours loop on a 48×64 clip (T=8, O=2, 3 rounds) on the
@@ -25,12 +28,16 @@ with its own seconds:
    O=3, 4 rounds, seeded full-width ResNet-50 AssessNet (BN-folded) and
    Brain. The crop kernel's launch count is zeroed just before and read
    just after, and must equal rounds·ceil(T/32). One more QA round is
-   timed and profiled (``torch.profiler``: device time by op);
+   timed and profiled (``qa_profile``: device activity only, over
+   PROFILE_CALLS rounds, means per round; the crop kernels' traced
+   launches beside the wrapper's count, and the phase fails if the
+   wrapper launched but none of its kernels was traced);
 5. kernel_roi_crop: the crop kernel with given boxes (AssessNet training)
    against its plain torch version at the training path's shape, B=32
    images of 480×854 with C=4 channels (frame + prob) and boxes from
    empty, tiny, border-touching and out-of-range masks, 256² float32 crops:
-   crop error (float32 bound), kernel / plain / library / bound times;
+   crop error (float32 bound), kernel / plain / library / bound times,
+   ``device_ms`` and ``bound_share``;
 6. train_small: two ``assess_train_step``s of a float32 AssessNet on 48×64
    images, batch 4, lr 1e-2, on the card (crop kernel) and on the host
    (plain crop) from the same weights: losses and parameter updates agree
@@ -40,7 +47,8 @@ with its own seconds:
    AssessNet in bf16, 8 steps. The crop kernel's launch count is zeroed
    just before and read just after, and must be 8; losses finite. Step
    times, peak device memory and the host's batch-building time; one more
-   step, its batch already on the card, is profiled (``train_profile``);
+   step, its batch already on the card, is profiled (``train_profile``, as
+   ``qa_profile``);
 8. train_assess: ``generate_qa_data.run`` (FakeVOS) on one 480×854 clip
    (T=8, O=2, 2 rounds: 32 prob maps as PNGs) into a temporary directory,
    then one ``train_assess.run`` epoch at batch 32: one launch per batch,
@@ -85,7 +93,8 @@ with its own seconds:
 Then it prints the kernel table (one JSON object; each kernel's launches
 are those of its path's run: the TAPNet slice for the fused-box kernel, the
 training run for the crop kernel, the two-stage round for the pair kernel;
-the matrix crop is on no path), the card's name and power limit as
+the matrix crop is on no path; the fused-box and crop kernels' rows also
+carry ``device_ms`` and ``bound_share``), the card's name and power limit as
 nvidia-smi gives them, and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -141,6 +150,17 @@ SCORE_ATOL = 3e-2
 TAP_PROB_ATOL = 2.0**-5
 TAP_LABEL_SHARE = 0.05
 TAP_ROUNDS = 3
+# torch.profiler's tracer (kineto) drops a few device records per window as
+# out of its capture window (3-10 of ~2400 in a QA round, by its own log),
+# mostly the window's first: once both crop launches of a one-round TAPNet
+# window, and the first of three FakeVOS uploads. A profile therefore traces
+# this many consecutive calls, reports means per call, and shows each crop
+# kernel's traced launches beside the wrapper's count.
+PROFILE_CALLS = 5
+# the kernels of csrc/roi_crop_fusedbox.cu and csrc/roi_crop.cu, by name in
+# the profiler's device events
+FUSEDBOX_KERNELS = ("fusedbox_box_kernel", "fusedbox_reduce_kernel", "fusedbox_crop_kernel")
+ROI_CROP_KERNELS = ("roi_crop_kernel",)
 
 
 def log_phase(name: str, tic: float, **fields) -> None:
@@ -297,6 +317,10 @@ def phase_kernel(torch, dev, kinfo, T, inputs=None):
         lambda: roi_crop_pairs_fusedbox_reference(frames, probs, S, torch.bfloat16, **kw), 3
     )
     library_ms = cuda_ms(library, 3)
+    # device time alone, each of the call's kernels apart
+    split = device_ms_by_kernel(
+        torch, lambda: roi_crop_pairs_fusedbox(frames, probs, S, torch.bfloat16, **kw))
+    device_ms = sum(v["ms"] for v in split.values())
     timing_launches = roi_crop_pairs_fusedbox.launches - before
 
     _, boxes = roi_crop_pairs_fusedbox(frames, probs, S, torch.bfloat16, return_boxes=True, **kw)
@@ -314,13 +338,15 @@ def phase_kernel(torch, dev, kinfo, T, inputs=None):
         max_abs_err_bf16=errs["torch.bfloat16"][1], bound_bf16=errs["torch.bfloat16"][2],
         max_abs_err_f32=errs["torch.float32"][1], bound_f32=errs["torch.float32"][2],
         library_max_abs_err_vs_f32_plain=library_err,
-        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_share=bound_ms / device_ms, device_ms_by_kernel=split,
         bytes={"probs": bytes_probs, "frames": bytes_frames, "out": bytes_out},
         timing_launches=timing_launches,
     )
     return {
         "max_abs_err": errs["torch.bfloat16"][1], "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "library_ms": library_ms, "device_ms": device_ms,
+        "bound_share": bound_ms / device_ms,
     }
 
 
@@ -453,7 +479,8 @@ def phase_slice(torch, dev, kinfo):
         torch.cuda.synchronize()
         qa_ms.append((time.perf_counter() - t0) * 1e3)
     profile = profile_device(
-        torch, lambda: predict_clip_quality(assess_net, frames, all_p, O), float(np.median(qa_ms))
+        torch, lambda: predict_clip_quality(assess_net, frames, all_p, O), float(np.median(qa_ms)),
+        launched=[(roi_crop_pairs_fusedbox, FUSEDBOX_KERNELS)],
     )
 
     log_phase(
@@ -468,47 +495,66 @@ def phase_slice(torch, dev, kinfo):
     return launches
 
 
-def profile_device(torch, fn, wall_ms: float, top: int = 10):
-    """torch.profiler over one call of ``fn`` (a QA round, a train step;
-    after a profiled warm-up call that pays the tracer's start-up): device
-    time of each kernel and copy, the copies' (memcpy / memset) sum apart
-    from the compute kernels' sum, and the share of the profiled call's own
-    wall time in which no compute kernel ran, and in which neither a kernel
-    nor a copy ran. ``wall_ms`` (an unprofiled call's time) is reported
-    beside it: the pageable upload's rate varies from call to call. One
-    stream runs the call, so device activities do not overlap."""
-    from torch.autograd import DeviceType
+def profile_device(torch, fn, wall_ms: float, launched=(), top: int = 10):
+    """torch.profiler over PROFILE_CALLS consecutive calls of ``fn`` (QA
+    rounds, train steps; after a profiled warm-up that pays the tracer's
+    start-up), device activity only, means per call: the device time of
+    each kernel and copy, the copies' (memcpy / memset) sum apart from the
+    compute kernels' sum, and the share of the calls' own wall time in
+    which no compute kernel ran, and in which neither a kernel nor a copy
+    ran. ``wall_ms`` (an unprofiled call's time) is reported beside it: the
+    pageable upload's rate varies from call to call. One stream runs the
+    calls, so device activities do not overlap. ``launched``: (wrapper,
+    kernel names) pairs, the port's crop kernels launched through ctypes;
+    for each, its launches and the traced launches of each kernel are
+    reported, and the phase raises when the wrapper launched but none of
+    its kernels was traced."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        counts = [wrapper.launches for wrapper, _ in launched]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn()
+            for _ in range(PROFILE_CALLS):
+                fn()
             torch.cuda.synchronize()
-            profiled_ms = (time.perf_counter() - t0) * 1e3
+            profiled_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_CALLS
     device = [
         e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-        and not e.key.startswith("Activity Buffer")
+        if e.device_time_total > 0 and not e.key.startswith("Activity Buffer")
     ]
-    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    device.sort(key=lambda e: e.device_time_total, reverse=True)
+    ms = lambda e: e.device_time_total / 1e3 / PROFILE_CALLS
+    crop = {}
+    for (wrapper, names), count in zip(launched, counts):
+        n = wrapper.launches - count
+        traced = [e for e in device if any(k in e.key for k in names)]
+        if n and not traced:
+            raise AssertionError(
+                f"{wrapper.__name__} launched {n}x in the profiled calls, but no kernel "
+                f"{names} was traced among {sum(e.count for e in device)} device events")
+        crop[wrapper.__name__] = {
+            "launches": n, "ms": sum(ms(e) for e in traced),
+            "traced": {k: sum(e.count for e in traced if k in e.key) for k in names},
+        }
     is_copy = lambda e: e.key.startswith(("Memcpy", "Memset"))
-    copy_ms = sum(e.self_device_time_total for e in device if is_copy(e)) / 1e3
-    compute_ms = sum(e.self_device_time_total for e in device if not is_copy(e)) / 1e3
+    copy_ms = sum(ms(e) for e in device if is_copy(e))
+    compute_ms = sum(ms(e) for e in device if not is_copy(e))
     return {
         "wall_ms": wall_ms,
+        "profiled_calls": PROFILE_CALLS,
         "profiled_wall_ms": profiled_ms,
         "compute_ms": compute_ms,
         "copy_ms": copy_ms,
         "compute_idle_share": 1.0 - compute_ms / profiled_ms,
         "device_idle_share": 1.0 - (compute_ms + copy_ms) / profiled_ms,
+        "crop_kernels": crop,
         "top": [
-            {"name": e.key[:90], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
-            for e in device[:top]
+            {"name": e.key[:90], "calls": e.count, "device_ms": ms(e)} for e in device[:top]
         ],
         "copies": [
-            {"name": e.key[:90], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
+            {"name": e.key[:90], "calls": e.count, "device_ms": ms(e)}
             for e in device if is_copy(e)
         ],
     }
@@ -542,6 +588,8 @@ def phase_kernel_roi_crop(torch, dev, kinfo):
     kernel_ms = cuda_ms(lambda: roi_crop(images, yxhw, S), 20)
     plain_ms = cuda_ms(lambda: roi_crop_reference(images, yxhw, S), 3)
     library_ms = cuda_ms(lambda: affine_library_crop(torch, nchw, boxes), 5)
+    split = device_ms_by_kernel(torch, lambda: roi_crop(images, yxhw, S))
+    device_ms = sum(v["ms"] for v in split.values())
     timing_launches = roi_crop.launches - before
 
     bytes_in = crop_bytes_needed(boxes, H, W, C)
@@ -553,11 +601,13 @@ def phase_kernel_roi_crop(torch, dev, kinfo):
         "kernel_roi_crop", tic, shape={"B": B_TRAIN, "H": H, "W": W, "C": C, "S": S},
         max_abs_err_f32=err, bound_f32=F32_CROP_ATOL,
         library_max_abs_err_vs_plain=library_err,
-        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_share=bound_ms / device_ms, device_ms_by_kernel=split,
         bytes={"in": bytes_in, "out": bytes_out}, timing_launches=timing_launches,
     )
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "library_ms": library_ms}
+            "bound_ms": bound_ms, "library_ms": library_ms, "device_ms": device_ms,
+            "bound_share": bound_ms / device_ms}
 
 
 def train_batch(b, h, w, seed):
@@ -708,7 +758,7 @@ def phase_train(torch, dev, kinfo):
     device_batch = orig_upload(next(stream), dev)
     profile = profile_device(
         torch, lambda: orig_step(net, opt, device_batch, cfg.assess_net.lr),
-        float(np.median(step_s[2:])) * 1e3,
+        float(np.median(step_s[2:])) * 1e3, launched=[(roi_crop, ROI_CROP_KERNELS)],
     )
     if launches != TRAIN_STEPS:
         raise AssertionError(f"crop kernel launched {launches}x in {TRAIN_STEPS} steps")
@@ -866,10 +916,8 @@ def phase_kernel_roi_crop_pairs(torch, dev, kinfo, T):
 def device_ms_by_kernel(torch, fn, calls: int = 5):
     """Mean device ms of each kernel ``fn`` launches and the launches the
     trace holds, over ``calls`` calls after one warm-up (``torch.profiler``,
-    device activity only: with host activity as well, as in profile_device,
-    ``key_averages`` left the kernels launched through ctypes out). The
-    mean is over the launches traced: in a full run the trace held 4 of 5
-    launches of a call's first kernel."""
+    device activity only). The mean is over the launches traced (see
+    PROFILE_CALLS)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1131,7 +1179,8 @@ def phase_tapnet_slice(torch, dev, kinfo):
         torch.cuda.synchronize()
         qa_ms.append((time.perf_counter() - t0) * 1e3)
     profile = profile_device(
-        torch, lambda: predict_clip_quality(assess_net, frames, all_p, O), float(np.median(qa_ms))
+        torch, lambda: predict_clip_quality(assess_net, frames, all_p, O), float(np.median(qa_ms)),
+        launched=[(roi_crop_pairs_fusedbox, FUSEDBOX_KERNELS)],
     )
     h2d_ms = sum(e["device_ms"] for e in profile["copies"] if "HtoD" in e["name"])
     if h2d_ms > 0.05:
@@ -1258,7 +1307,7 @@ def main() -> int:
             "replaces": f"ivosw_tpu/kernels/roi_pallas.py:{replaces}", "launches": launches,
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": bound_by, "library_ms": st["library_ms"],
-            "path": path,
+            "path": path, **{k: st[k] for k in ("device_ms", "bound_share") if k in st},
         }
 
     fused = row("roi_crop_pairs_fusedbox", "roi_crop_fusedbox.cu", 461, launches, stats, "bytes",

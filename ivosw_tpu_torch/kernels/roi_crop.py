@@ -23,7 +23,10 @@ float32 or bfloat16 (``assess_net.bf16_inputs``); an adapter's
   intermediate, the output); for values in [0, 1] each rounding moves a
   value by at most half an ulp, 2⁻⁹, and the output rounding at the top of
   the range by up to 2⁻⁸, so in bfloat16 the two differ by at most
-  :data:`BF16_CROP_ATOL` = 2⁻⁶; boxes agree bit for bit.
+  :data:`BF16_CROP_ATOL` = 2⁻⁶; boxes agree bit for bit. The kernel's box
+  pass reads each plane in :func:`box_bands` bands of loads as wide as
+  :func:`plane_load_bytes` allows, into a scratch of per-band partial
+  boxes; a second launch reduces them to the boxes, a third crops.
 - :func:`roi_crop_pairs` (``csrc/roi_crop_pairs.cu``, replaces
   ``roi_crop_pairs_pallas``, ``roi_pallas.py:299``, reached through
   ``roi_crop_pairs`` :639): given yxhw boxes ``[T·O, 4]``. Plain version
@@ -58,7 +61,9 @@ path): ``[B, H, W, C]`` float32 images and ``[B, 4]`` yxhw boxes →
 ``[B, S, S, C]`` float32.
 
 - :func:`roi_crop` launches the kernel of ``csrc/roi_crop.cu`` for CUDA
-  tensors and counts each launch in ``roi_crop.launches``; CPU tensors go to
+  tensors, once per call (the kernel converts the yxhw boxes itself; its
+  C=4 variant is picked by :func:`whole_pixel_loads`), and counts each
+  launch in ``roi_crop.launches``; CPU tensors go to
   the plain version. Any other device raises, and so does an input that
   requires a gradient: like the TPU kernel, the kernel has no backward.
 - :func:`roi_crop_reference` is the plain version, the float32 einsum of
@@ -150,6 +155,7 @@ def _bind(lib: ctypes.CDLL, name: str, argtypes):
 
 
 _c_int, _c_float, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+_c_longlong = ctypes.c_longlong
 
 
 def _check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
@@ -166,6 +172,45 @@ def _load(source: str) -> ctypes.CDLL:
     from ivosw_tpu_torch.kernels import _build
 
     return _build.load(source)
+
+
+# The fused-box kernel's box pass reads each prob plane in bands of
+# BOX_BAND_LOADS loads, one block per (band, pair): two steps of 256 threads
+# × 4 loads (csrc/roi_crop_fusedbox.cu, kBoxThreads and kBoxUnroll). Its
+# launches take at most MAX_PAIRS pairs, and a frame's values must have
+# 32-bit offsets.
+BOX_BAND_LOADS = 256 * 4 * 2
+MAX_PAIRS = 65535
+
+
+def plane_load_bytes(base_ptr: int, plane_bytes: int, itemsize: int) -> int:
+    """The box pass's load width: the widest of 16, 8, 4 and 2 bytes, not
+    narrower than a value, that divides both the probs' base address and
+    one plane's byte size, so that every plane starts and ends on a load
+    boundary (480×854 takes 16 bytes in both types; 49×71 takes 4 in
+    float32 and 2 in bfloat16)."""
+    for width in (16, 8, 4, 2):
+        if width >= itemsize and base_ptr % width == 0 and plane_bytes % width == 0:
+            return width
+    raise ValueError(f"probs at {base_ptr:#x} are not aligned to their {itemsize}-byte values")
+
+
+def box_bands(plane_bytes: int, load_bytes: int) -> int:
+    """Bands per prob plane in the box pass: one block reads BOX_BAND_LOADS
+    loads of ``load_bytes`` (the last band may be shorter)."""
+    return -(-(plane_bytes // load_bytes) // BOX_BAND_LOADS)
+
+
+def whole_pixel_loads(c: int, base_ptr: int) -> bool:
+    """Whether :func:`roi_crop`'s kernel takes its C=4 variant (one 16-byte
+    load per tap, one 16-byte store per output pixel) rather than its scalar
+    variant; the choice follows C alone. At C=4 a base off a 16-byte
+    boundary raises rather than being read wrong."""
+    if c != 4:
+        return False
+    if base_ptr % 16:
+        raise ValueError(f"images at {base_ptr:#x}: the C=4 crop needs a 16-byte aligned base")
+    return True
 
 
 # ------------------------------------------------------- plain versions --
@@ -268,21 +313,31 @@ def roi_crop_pairs_fusedbox(
     t, h, w = _check_pair_inputs(frames, probs, out_size, dtype)
     o = _selected_planes(probs, obj_offset, num_objects)
 
+    if t * o > MAX_PAIRS or h * w * 3 >= 2**31:
+        raise ValueError(f"{t * o} pairs of {h}×{w}: the kernel takes at most {MAX_PAIRS} "
+                         "pairs of frames with fewer than 2³¹ values")
+    plane_bytes = h * w * probs.element_size()
+    load_bytes = plane_load_bytes(probs.data_ptr(), plane_bytes, probs.element_size())
+    bands = box_bands(plane_bytes, load_bytes)
+
     lib = _load(_SOURCE)
     fn = _bind(lib, "ivosw_roi_crop_pairs_fusedbox", [
         _ptr, _ptr, _c_int, _c_int,  # frames, probs, their bf16 flags
         _c_int, _c_int, _c_int, _c_int,  # T, planes per frame, obj offset, O
         _c_int, _c_int, _c_int,  # H, W, S
         _c_float, _c_float,  # min_side, grow
+        _c_int, _c_int, _c_int, _ptr,  # load bytes, loads per band, bands, partials
         _ptr, _ptr, _c_int,  # boxes, out, out_bf16
         _ptr,  # stream
     ])
     out = torch.empty((t * o, out_size, out_size, 4), dtype=dtype, device=frames.device)
     boxes = torch.empty((t * o, 4), dtype=torch.float32, device=frames.device)
+    partial = torch.empty((t * o, bands, 4), dtype=torch.int32, device=frames.device)
     err = fn(
         frames.data_ptr(), probs.data_ptr(), _is_bf16(frames), _is_bf16(probs),
         t, probs.shape[1], obj_offset, o, h, w, out_size,
         float(min_side), (scale - 1.0) / 2.0,
+        load_bytes, BOX_BAND_LOADS, bands, partial.data_ptr(),
         boxes.data_ptr(), out.data_ptr(), _is_bf16(out),
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
@@ -458,8 +513,10 @@ def roi_crop(images: torch.Tensor, yxhw: torch.Tensor, out_size: int = ROI_S) ->
     """Bilinear crop of every image inside its box → [B, S, S, C] float32.
 
     images [B, H, W, C] float32 and yxhw [B, 4] float32 (y, x, h, w) boxes,
-    both contiguous and on one device. The boxes become (ymin, ymax, xmin,
-    xmax) here, outside the kernel, as ``roi_pallas.py:72-73`` does."""
+    on one device, the images contiguous (a 16-byte aligned base at C=4).
+    One launch: the kernel turns the boxes into (ymin, ymax, xmin, xmax)
+    itself, where the TPU wrapper did it outside (``roi_pallas.py:72-73``),
+    and this wrapper does no tensor work besides allocating the output."""
     if _on_cpu(images, yxhw):
         return roi_crop_reference(images, yxhw, out_size)
     if images.dtype != torch.float32 or yxhw.dtype != torch.float32:
@@ -472,19 +529,21 @@ def roi_crop(images: torch.Tensor, yxhw: torch.Tensor, out_size: int = ROI_S) ->
     if out_size < 2:
         raise ValueError(f"out_size must be >= 2, got {out_size}")
     b, h, w, c = images.shape
-    boxes = torch.stack(yxhw_to_minmax(yxhw), dim=1).contiguous()
+    pixel4 = whole_pixel_loads(c, images.data_ptr())
 
     lib = _load(_CROP_SOURCE)
     fn = _bind(lib, "ivosw_roi_crop", [
         _ptr,  # images
-        _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, C, S
-        _ptr, _ptr,  # boxes, out
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, C, S, C=4 variant
+        _ptr, _c_longlong, _c_longlong,  # yxhw and its strides
+        _ptr,  # out
         _ptr,  # stream
     ])
     out = torch.empty((b, out_size, out_size, c), dtype=torch.float32, device=images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
     err = fn(
-        images.data_ptr(), b, h, w, c, out_size, boxes.data_ptr(), out.data_ptr(), stream
+        images.data_ptr(), b, h, w, c, out_size, int(pixel4), yxhw.data_ptr(), yxhw.stride(0),
+        yxhw.stride(1), out.data_ptr(), stream,
     )
     _check_launch(lib, err, "roi_crop")
     roi_crop.launches += 1

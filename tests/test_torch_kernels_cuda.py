@@ -211,3 +211,99 @@ def test_pair_kernels_reject_bad_inputs(cuda):
     frames = frames.detach()
     assert torch.isfinite(roi_crop_pairs(frames, probs, yxhw, 8).float()).all()
     assert torch.isfinite(roi_crop_pairs_premat(frames, probs, yxhw, 8).float()).all()
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_roi_crop_kernel_ragged_shapes_and_strided_boxes(cuda, c):
+    """An odd batch, odd image sizes and S=37, so the output pixels are no
+    multiple of a thread's rows or of a block's columns; boxes read through
+    a non-contiguous view. One launch per call."""
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop, roi_crop_reference
+    from ivosw_tpu_torch.ops.roi import mask_to_yxhw
+
+    h, w, s = 49, 71, 37
+    masks = torch.from_numpy(edge_case_probs(1, 5, h, w, seed=c)[0] > 0.5).to(cuda)
+    boxes = mask_to_yxhw(masks, 1.5)
+    wide = torch.zeros((len(boxes), 7), device=cuda)
+    wide[:, 1:5] = boxes
+    yxhw = wide[:, 1:5]  # row stride 7
+    assert not yxhw.is_contiguous()
+    images = torch.rand((len(boxes), h, w, c), device=cuda)
+    before = roi_crop.launches
+    out = roi_crop(images, yxhw, s)
+    ref = roi_crop_reference(images, boxes, s)
+    torch.cuda.synchronize()
+    assert roi_crop.launches == before + 1
+    assert out.shape == (len(boxes), s, s, c)
+    assert float((out - ref).abs().max()) <= F32_CROP_ATOL
+
+
+def test_roi_crop_kernel_whole_pixels_need_an_aligned_base(cuda):
+    """At C=4 an image batch starting off a 16-byte boundary raises; one
+    starting on one (a later image of a batch) is cropped."""
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop, roi_crop_reference
+
+    flat = torch.rand(3 * 16 * 16 * 4 + 1, device=cuda)
+    yxhw = torch.tensor([[8.0, 8.0, 10.0, 12.0], [3.0, 4.0, 20.0, 20.0]], device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        roi_crop(flat[1:1 + 2 * 16 * 16 * 4].view(2, 16, 16, 4), yxhw, 8)
+    images = flat[:3 * 16 * 16 * 4].view(3, 16, 16, 4)[1:]
+    out = roi_crop(images, yxhw, 8)
+    torch.cuda.synchronize()
+    assert float((out - roi_crop_reference(images, yxhw, 8)).abs().max()) <= F32_CROP_ATOL
+
+
+def _single_pixel_planes(h, w, flat_positions, seed):
+    """[1, 1 + n, h, w] prob maps, background plane 0, object plane k holding
+    one foreground value at flat index flat_positions[k] over noise < 0.5."""
+    rng = np.random.default_rng(seed)
+    probs = (rng.random((1, 1 + len(flat_positions), h * w)) * 0.5).astype(np.float32)
+    for k, f in enumerate(flat_positions):
+        probs[0, 1 + k, f] = 0.75
+    return probs.reshape(1, 1 + len(flat_positions), h, w)
+
+
+@pytest.mark.parametrize("h,w", [(49, 71), (50, 70), (480, 854)])
+@pytest.mark.parametrize("inputs", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fusedbox_box_pass_edges(cuda, h, w, inputs, offset):
+    """Planes whose only foreground value lies at the first or last value of
+    the plane, in the tail past its last whole 16-byte load, on each side
+    of a band boundary of the box pass, and at the last value of a row.
+    49×71 planes are off 16-byte boundaries (one-value loads), 50×70 bf16
+    planes take 8-byte loads; ``offset`` 1 starts the probs one value past
+    an aligned base, which narrows the loads again. Boxes bit-equal, crops
+    within the bounds, with both input types."""
+    from ivosw_tpu_torch.kernels.roi_crop import (
+        BOX_BAND_LOADS,
+        box_bands,
+        plane_load_bytes,
+    )
+
+    itemsize = torch.tensor([], dtype=inputs).element_size()
+    hw = h * w
+    last_whole = hw * itemsize // 16 * 16 // itemsize  # first value past whole 16-byte loads
+    positions = [0, hw - 1, min(last_whole, hw - 1), w - 1, w * (h // 2) + w - 1]
+    # torch's allocations start on 256-byte boundaries, so the load width
+    # follows from the offset and the plane size
+    width = plane_load_bytes(offset * itemsize, hw * itemsize, itemsize)
+    per_band = BOX_BAND_LOADS * width // itemsize  # values per band
+    if per_band < hw:
+        positions += [per_band - 1, per_band]
+    planes = _single_pixel_planes(h, w, sorted(set(positions)), seed=h + offset)
+    flat = torch.zeros(planes.size + offset, dtype=inputs, device=cuda)
+    flat[offset:] = torch.from_numpy(planes.ravel()).to(cuda).to(inputs)
+    probs = flat[offset:].view(planes.shape)
+    assert plane_load_bytes(probs.data_ptr(), hw * itemsize, itemsize) == width
+    assert (offset == 0 and hw * itemsize % 16 == 0) == (width == 16)
+    assert (per_band < hw) == (box_bands(hw * itemsize, width) > 1)
+    frames = torch.from_numpy(frames_like(1, h, w)).to(cuda).to(inputs)
+    for dtype in (torch.bfloat16, torch.float32):
+        out, boxes = roi_crop_pairs_fusedbox(frames, probs, 64, dtype, obj_offset=1,
+                                             return_boxes=True)
+        ref, ref_boxes = roi_crop_pairs_fusedbox_reference(frames, probs, 64, dtype,
+                                                           obj_offset=1, return_boxes=True)
+        torch.cuda.synchronize()
+        assert torch.equal(boxes, ref_boxes)
+        atol = F32_CROP_ATOL if dtype == torch.float32 else BF16_CROP_ATOL
+        assert float((out.float() - ref.float()).abs().max()) <= atol

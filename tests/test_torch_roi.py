@@ -176,6 +176,62 @@ def test_roi_crop_wrapper_contract():
         port_kernel.roi_crop(images.requires_grad_(), yxhw, 8)
 
 
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("h,w,itemsize,offset,want", [
+    (480, 854, 2, 0, 16), (480, 854, 4, 0, 16),  # the path: 16-byte planes
+    (49, 71, 4, 0, 4), (49, 71, 2, 0, 2),  # odd planes: one value per load
+    (50, 70, 2, 0, 8), (50, 70, 4, 0, 16),
+    (480, 854, 2, 8, 8), (480, 854, 4, 4, 4), (480, 854, 2, 2, 2),  # bases off 16 bytes
+])
+def test_box_pass_load_width(h, w, itemsize, offset, want):
+    """The fused-box kernel's box pass loads the widest of 16/8/4/2 bytes
+    that divides both the probs' base address and one plane's byte size,
+    and never less than one value: every plane starts and ends on a load."""
+    plane = h * w * itemsize
+    width = port_kernel.plane_load_bytes(0x7F0000000000 + offset, plane, itemsize)
+    assert width == want
+    assert plane % width == 0 and offset % width == 0 and width >= itemsize
+
+
+def test_box_pass_rejects_values_off_their_alignment():
+    with pytest.raises(ValueError, match="aligned"):
+        port_kernel.plane_load_bytes(0x1001, 100, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        port_kernel.plane_load_bytes(0x1002, 100, 4)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_box_pass_fills_the_card_at_the_path_shape(itemsize):
+    """At one launch of the scoring round (T=32, O=3, 480×854) the box
+    pass runs several blocks per SM of the H100, and its bands cover each
+    plane's loads once."""
+    plane = 480 * 854 * itemsize
+    width = port_kernel.plane_load_bytes(0, plane, itemsize)
+    bands = port_kernel.box_bands(plane, width)
+    assert 32 * 3 * bands > 4 * H100_SMS
+    loads = plane // width
+    assert (bands - 1) * port_kernel.BOX_BAND_LOADS < loads <= bands * port_kernel.BOX_BAND_LOADS
+    assert port_kernel.box_bands(49 * 71 * itemsize, itemsize) == 2  # 3479 one-value loads
+
+
+@pytest.mark.parametrize("c,offset,want", [(4, 0, True), (4, 32, True), (1, 4, False),
+                                           (3, 4, False), (2, 8, False), (5, 0, False)])
+def test_roi_crop_variant_follows_c(c, offset, want):
+    """roi_crop's kernel takes its whole-pixel (16-byte) variant at C=4 and
+    its scalar variant at any other C, whatever the base."""
+    assert port_kernel.whole_pixel_loads(c, 0x7F0000000000 + offset) is want
+
+
+def test_roi_crop_whole_pixels_reject_a_misaligned_base():
+    """At C=4 a base off a 16-byte boundary raises rather than being read
+    as whole pixels, and is never sent to the scalar variant."""
+    for offset in (4, 8, 12):
+        with pytest.raises(ValueError, match="16-byte"):
+            port_kernel.whole_pixel_loads(4, 0x7F0000000000 + offset)
+
+
 def _pair_boxes(t, o, h, w, seed):
     """yxhw [T·O, 4] of edge-case masks with the last three pairs' boxes
     far outside the image, straddling the bottom edge and around it."""
