@@ -61,7 +61,9 @@ with its own seconds:
    (+ background plane, object offset 1), 480×854, 256² bf16 crops of bf16
    inputs, boxes from ``mask_to_yxhw`` of the seeded maps of 2 plus boxes
    out of range; and in float32. Error, kernel / plain / library
-   (``affine_grid`` + ``grid_sample``) / bound times;
+   (``affine_grid`` + ``grid_sample``) / bound times, ``device_ms`` and
+   ``bound_share``; the traced call must hold the pair kernel alone (the
+   wrapper converts no box with torch launches);
 11. kernel_roi_crop_pairs_premat: the matrix crop likewise (bf16 at the
    full shape, float32 at T=4), with bilinear matrices and with seeded
    random dense ones; library time ``torch.bmm`` of the two stages; the
@@ -93,8 +95,8 @@ with its own seconds:
 Then it prints the kernel table (one JSON object; each kernel's launches
 are those of its path's run: the TAPNet slice for the fused-box kernel, the
 training run for the crop kernel, the two-stage round for the pair kernel;
-the matrix crop is on no path; the fused-box and crop kernels' rows also
-carry ``device_ms`` and ``bound_share``), the card's name and power limit as
+the matrix crop is on no path; the fused-box, crop and pair kernels' rows
+also carry ``device_ms`` and ``bound_share``), the card's name and power limit as
 nvidia-smi gives them, and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -157,10 +159,11 @@ TAP_ROUNDS = 3
 # this many consecutive calls, reports means per call, and shows each crop
 # kernel's traced launches beside the wrapper's count.
 PROFILE_CALLS = 5
-# the kernels of csrc/roi_crop_fusedbox.cu and csrc/roi_crop.cu, by name in
-# the profiler's device events
+# the kernels of csrc/roi_crop_fusedbox.cu, csrc/roi_crop.cu and
+# csrc/roi_crop_pairs.cu, by name in the profiler's device events
 FUSEDBOX_KERNELS = ("fusedbox_box_kernel", "fusedbox_reduce_kernel", "fusedbox_crop_kernel")
 ROI_CROP_KERNELS = ("roi_crop_kernel",)
+PAIR_KERNELS = ("pair_crop_kernel",)
 
 
 def log_phase(name: str, tic: float, **fields) -> None:
@@ -894,6 +897,14 @@ def phase_kernel_roi_crop_pairs(torch, dev, kinfo, T):
     plain_ms = cuda_ms(
         lambda: roi_crop_pairs_reference(frames, probs, yxhw, S, torch.bfloat16, **kw), 3)
     library_ms = cuda_ms(lambda: affine_library_crop(torch, nchw, boxes), 3)
+    # device time alone; the traced call must hold the pair kernel and no
+    # other kernel (the wrapper makes no torch launch)
+    split = device_ms_by_kernel(
+        torch, lambda: roi_crop_pairs(frames, probs, yxhw, S, torch.bfloat16, **kw))
+    if len(split) != 1 or PAIR_KERNELS[0] not in next(iter(split)):
+        raise AssertionError(f"roi_crop_pairs traced {sorted(split)}, expected {PAIR_KERNELS} "
+                             "alone")
+    device_ms = sum(v["ms"] for v in split.values())
     timing_launches = roi_crop_pairs.launches - before
 
     bytes_in = pair_bytes_needed(boxes, T, 2)
@@ -906,28 +917,36 @@ def phase_kernel_roi_crop_pairs(torch, dev, kinfo, T):
         inputs="torch.bfloat16",
         max_abs_err_bf16=errs[torch.bfloat16][0], bound_bf16=errs[torch.bfloat16][1],
         max_abs_err_f32=errs[torch.float32][0], bound_f32=errs[torch.float32][1],
-        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_share=bound_ms / device_ms, device_ms_by_kernel=split,
         bytes={"in": bytes_in, "out": bytes_out}, timing_launches=timing_launches,
     )
     return {"max_abs_err": errs[torch.bfloat16][0], "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            "device_ms": device_ms, "bound_share": bound_ms / device_ms}
 
 
-def device_ms_by_kernel(torch, fn, calls: int = 5):
+def device_ms_by_kernel(torch, fn, calls: int = 5, tries: int = 3):
     """Mean device ms of each kernel ``fn`` launches and the launches the
     trace holds, over ``calls`` calls after one warm-up (``torch.profiler``,
     device activity only). The mean is over the launches traced (see
-    PROFILE_CALLS)."""
+    PROFILE_CALLS). The tracer sometimes loses a short window's records
+    altogether: an empty trace is taken again, up to ``tries`` windows,
+    and raises after that."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    return {e.key[:90]: {"ms": e.device_time_total / 1e3 / e.count, "launches": e.count}
-            for e in prof.key_averages() if e.device_time_total > 0}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = {e.key[:90]: {"ms": e.device_time_total / 1e3 / e.count, "launches": e.count}
+                 for e in prof.key_averages() if e.device_time_total > 0}
+        if split:
+            return split
+    raise AssertionError(f"no device activity traced in {tries} windows of {calls} calls")
 
 
 def bmm_library_crop(torch, x, ry, rx):

@@ -36,7 +36,11 @@ float32 or bfloat16 (``assess_net.bf16_inputs``); an adapter's
   each of its sums has two terms whose bfloat16 products are exact, so in
   bfloat16 it agrees with the plain version to :data:`PAIR_BF16_ATOL` (one
   ulp at 1, for a sum order neither side fixes); in float32 to
-  :data:`F32_CROP_ATOL`.
+  :data:`F32_CROP_ATOL`. One launch per call: the kernel reads the float32
+  boxes through their strides and converts them itself, and stages spans
+  of source rows in shared memory (slots sized by
+  :func:`pair_stage_bytes`) with loads as wide as :func:`span_load_bytes`
+  allows.
 - :func:`roi_crop_pairs_premat` (``csrc/roi_crop_pairs_premat.cu``, replaces
   ``roi_crop_pairs_pallas_premat``, ``roi_pallas.py:584``): the same crop
   from given interpolation matrices Ry ``[T·O, S, H]`` and Rx
@@ -183,16 +187,52 @@ BOX_BAND_LOADS = 256 * 4 * 2
 MAX_PAIRS = 65535
 
 
+def _widest_load(base_ptr: int, image_bytes: int, itemsize: int, what: str) -> int:
+    for width in (16, 8, 4, 2):
+        if width >= itemsize and base_ptr % width == 0 and image_bytes % width == 0:
+            return width
+    raise ValueError(f"{what} at {base_ptr:#x} are not aligned to their {itemsize}-byte values")
+
+
 def plane_load_bytes(base_ptr: int, plane_bytes: int, itemsize: int) -> int:
     """The box pass's load width: the widest of 16, 8, 4 and 2 bytes, not
     narrower than a value, that divides both the probs' base address and
     one plane's byte size, so that every plane starts and ends on a load
     boundary (480×854 takes 16 bytes in both types; 49×71 takes 4 in
     float32 and 2 in bfloat16)."""
-    for width in (16, 8, 4, 2):
-        if width >= itemsize and base_ptr % width == 0 and plane_bytes % width == 0:
-            return width
-    raise ValueError(f"probs at {base_ptr:#x} are not aligned to their {itemsize}-byte values")
+    return _widest_load(base_ptr, plane_bytes, itemsize, "probs")
+
+
+def span_load_bytes(base_ptr: int, image_bytes: int, itemsize: int) -> int:
+    """The given-box pair kernel's row-span load width for frames or probs:
+    the widest of 16, 8, 4 and 2 bytes, not narrower than a value, that
+    divides both the tensor's base address and one frame's (or plane's)
+    byte size. A span aligned down and up to it then never leaves its image
+    (480×854 takes 16 bytes for frames and planes in both types; 49×71
+    bfloat16 takes 2). Raises for a base off its values' alignment."""
+    return _widest_load(base_ptr, image_bytes, itemsize, "frames or probs")
+
+
+# Shared memory one block of the given-box pair kernel may take (H100), and
+# its row buffers (csrc/roi_crop_pairs.cu, kStages).
+MAX_SMEM = 232448
+PAIR_STAGES = 2
+
+
+def pair_stage_bytes(w: int, frame_itemsize: int, prob_itemsize: int) -> tuple[int, int, int]:
+    """Shared memory of the given-box pair kernel at width ``w`` →
+    (frame slot, plane slot, block total) in bytes. A slot holds one source
+    row's span with a 16-byte load's worth of head and tail (a 16-byte
+    multiple); a block holds :data:`PAIR_STAGES` buffers of two frame and
+    two plane slots. Raises when that exceeds :data:`MAX_SMEM` (a frame too
+    wide)."""
+    frame_cap = -(-(w * 3 * frame_itemsize + 32) // 16) * 16
+    plane_cap = -(-(w * prob_itemsize + 32) // 16) * 16
+    total = PAIR_STAGES * 2 * (frame_cap + plane_cap)
+    if total > MAX_SMEM:
+        raise ValueError(f"width {w}: the pair kernel would need {total} bytes of shared "
+                         f"memory per block, more than {MAX_SMEM}")
+    return frame_cap, plane_cap, total
 
 
 def box_bands(plane_bytes: int, load_bytes: int) -> int:
@@ -360,30 +400,44 @@ def roi_crop_pairs(
 ):
     """All T×O pair crops in given yxhw boxes [T·O, 4] → [T·O, S, S, 4] in
     ``dtype``; frames and probs as :func:`roi_crop_pairs_fusedbox` takes
-    them. The boxes become (ymin, ymax, xmin, xmax) here, outside the
-    kernel, as ``roi_pallas.py:320-321`` does."""
+    them, yxhw float32 on the same device (any strides). One launch: the
+    kernel turns the boxes into (ymin, ymax, xmin, xmax) itself, as
+    ``roi_pallas.py:320-321`` does inside the TPU function, and this wrapper
+    does no tensor work besides allocating the output."""
     if _on_cpu(frames, probs, yxhw):
         return roi_crop_pairs_reference(frames, probs, yxhw, out_size, dtype, obj_offset,
                                         num_objects)
     t, h, w = _check_pair_inputs(frames, probs, out_size, dtype)
     o = _selected_planes(probs, obj_offset, num_objects)
+    if yxhw.dtype != torch.float32:
+        raise TypeError(f"need float32 yxhw boxes, got {yxhw.dtype}")
     if tuple(yxhw.shape) != (t * o, 4):
         raise ValueError(f"need yxhw [{t * o}, 4], got {tuple(yxhw.shape)}")
-    boxes = torch.stack(yxhw_to_minmax(yxhw.float()), dim=1).contiguous()
+    if t * o > MAX_PAIRS or h * w * 3 >= 2**31:
+        raise ValueError(f"{t * o} pairs of {h}×{w}: the kernel takes at most {MAX_PAIRS} "
+                         "pairs of frames with fewer than 2³¹ values")
+    fsize, psize = frames.element_size(), probs.element_size()
+    frame_load = span_load_bytes(frames.data_ptr(), h * w * 3 * fsize, fsize)
+    plane_load = span_load_bytes(probs.data_ptr(), h * w * psize, psize)
+    frame_cap, plane_cap, _ = pair_stage_bytes(w, fsize, psize)
 
     lib = _load(_PAIRS_SOURCE)
     fn = _bind(lib, "ivosw_roi_crop_pairs", [
         _ptr, _ptr, _c_int, _c_int,  # frames, probs, their bf16 flags
         _c_int, _c_int, _c_int, _c_int,  # T, planes per frame, obj offset, O
         _c_int, _c_int, _c_int,  # H, W, S
-        _ptr, _ptr, _c_int,  # boxes, out, out_bf16
+        _ptr, _c_longlong, _c_longlong,  # yxhw and its strides
+        _c_int, _c_int, _c_int, _c_int,  # load widths, row slots
+        _ptr, _c_int,  # out, out_bf16
         _ptr,  # stream
     ])
     out = torch.empty((t * o, out_size, out_size, 4), dtype=dtype, device=frames.device)
     err = fn(
         frames.data_ptr(), probs.data_ptr(), _is_bf16(frames), _is_bf16(probs),
         t, probs.shape[1], obj_offset, o, h, w, out_size,
-        boxes.data_ptr(), out.data_ptr(), _is_bf16(out),
+        yxhw.data_ptr(), yxhw.stride(0), yxhw.stride(1),
+        frame_load, plane_load, frame_cap, plane_cap,
+        out.data_ptr(), _is_bf16(out),
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _check_launch(lib, err, "roi_crop_pairs")

@@ -112,10 +112,44 @@ def _pair_case(cuda, h, w, t, o, seed):
     return frames, probs, yxhw
 
 
-@pytest.mark.parametrize("h,w,s", [(48, 64, 64), (50, 70, 32), (480, 854, 256)])
+def _off_base(x, offset):
+    """x copied into storage that starts ``offset`` values before it (a
+    base off 16 bytes for offset 1)."""
+    flat = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    flat[offset:] = x.flatten()
+    return flat[offset:].view(x.shape)
+
+
+def _box_layout(yxhw, layout):
+    """yxhw as given, as a column slice of a wider tensor (row stride 7),
+    or as the transposed view of a [4, T·O] tensor (strides (1, T·O))."""
+    if layout == "column_slice":
+        wide = torch.zeros((len(yxhw), 7), device=yxhw.device)
+        wide[:, 2:6] = yxhw
+        return wide[:, 2:6]
+    if layout == "transposed":
+        return yxhw.t().contiguous().t()
+    return yxhw
+
+
+MIXES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("h,w,s", [(48, 64, 64), (50, 70, 32), (49, 71, 100), (50, 70, 300),
+                                   (480, 854, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("inputs", [torch.float32, torch.bfloat16])
-def test_pair_kernel_matches_plain(cuda, h, w, s, dtype, inputs):
+@pytest.mark.parametrize("inputs", MIXES, ids=["f32", "bf16", "bf16_frames", "bf16_probs"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("boxes", ["contiguous", "column_slice", "transposed"])
+def test_pair_kernel_matches_plain(cuda, h, w, s, dtype, inputs, offset, boxes):
+    """12 pairs: boxes of edge-case masks, then boxes of zero width, of
+    negative height and width, right of the image, far outside it, across
+    its bottom edge and around it (the span clamped at both ends). Odd
+    sizes take narrow span loads, and so do frames and probs whose base is
+    one value off a 16-byte boundary (``offset``); S=300 is past the
+    columns whose taps a thread keeps. Boxes read through their strides;
+    one launch per call."""
     from ivosw_tpu_torch.kernels.roi_crop import (
         PAIR_BF16_ATOL,
         roi_crop_pairs,
@@ -123,10 +157,15 @@ def test_pair_kernel_matches_plain(cuda, h, w, s, dtype, inputs):
     )
 
     frames, probs, yxhw = _pair_case(cuda, h, w, 3, 4, seed=w)
-    frames, probs = frames.to(inputs), probs.to(inputs)
+    yxhw[-6:-3] = torch.tensor([[h / 2, w / 3, 30.0, 0.0], [h / 2, w / 2, -40.0, -60.0],
+                                [h / 3, 3.0 * w, 20.0, w / 2]], device=cuda)
+    frames = _off_base(frames.to(inputs[0]), offset)
+    probs = _off_base(probs.to(inputs[1]), offset)
+    ref = roi_crop_pairs_reference(frames, probs, yxhw, s, dtype, obj_offset=1)
+    yxhw = _box_layout(yxhw, boxes)
+    assert yxhw.is_contiguous() == (boxes == "contiguous")
     before = roi_crop_pairs.launches
     out = roi_crop_pairs(frames, probs, yxhw, s, dtype, obj_offset=1)
-    ref = roi_crop_pairs_reference(frames, probs, yxhw, s, dtype, obj_offset=1)
     torch.cuda.synchronize()
     assert roi_crop_pairs.launches == before + 1
     assert out.shape == (12, s, s, 4) and out.dtype == dtype
@@ -200,6 +239,8 @@ def test_pair_kernels_reject_bad_inputs(cuda):
     yxhw = torch.tensor([[8.0, 8.0, 10.0, 10.0]] * 4, device=cuda)
     with pytest.raises(TypeError):
         roi_crop_pairs(frames.double(), probs, yxhw, 8)
+    with pytest.raises(TypeError):
+        roi_crop_pairs(frames, probs, yxhw.double(), 8)
     with pytest.raises(ValueError):
         roi_crop_pairs(frames, probs, yxhw[:3], 8)
     with pytest.raises(ValueError):

@@ -216,6 +216,53 @@ def test_box_pass_fills_the_card_at_the_path_shape(itemsize):
     assert port_kernel.box_bands(49 * 71 * itemsize, itemsize) == 2  # 3479 one-value loads
 
 
+@pytest.mark.parametrize("h,w,channels,itemsize,offset,want", [
+    (480, 854, 3, 2, 0, 16), (480, 854, 1, 2, 0, 16),  # the path: bf16 frames and planes
+    (480, 854, 3, 4, 0, 16), (480, 854, 1, 4, 0, 16),
+    (49, 71, 3, 2, 0, 2), (49, 71, 1, 2, 0, 2), (49, 71, 3, 4, 0, 4), (49, 71, 1, 4, 0, 4),
+    (50, 70, 3, 2, 0, 8), (50, 70, 1, 2, 0, 8),
+    (480, 854, 3, 2, 2, 2), (480, 854, 1, 4, 4, 4), (480, 854, 3, 2, 8, 8),  # bases off 16 bytes
+])
+def test_pair_span_load_width(h, w, channels, itemsize, offset, want):
+    """The given-box pair kernel loads row spans of frames (3 channels) and
+    planes in the widest of 16/8/4/2 bytes that divides both the tensor's
+    base and one image's byte size, never less than one value: a span
+    aligned down and up to the load stays inside its frame or plane (480×854
+    rows are 5124 or 1708 bytes, off 16, yet take 16-byte loads)."""
+    image = h * w * channels * itemsize
+    width = port_kernel.span_load_bytes(0x7F0000000000 + offset, image, itemsize)
+    assert width == want
+    assert image % width == 0 and offset % width == 0 and width >= itemsize
+
+
+def test_pair_span_load_rejects_values_off_their_alignment():
+    with pytest.raises(ValueError, match="aligned"):
+        port_kernel.span_load_bytes(0x1001, 480 * 854 * 3 * 2, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        port_kernel.span_load_bytes(0x1002, 480 * 854 * 4, 4)
+
+
+@pytest.mark.parametrize("frame_size,prob_size", [(2, 2), (4, 4), (2, 4), (4, 2)])
+def test_pair_stage_bytes_fit_the_card(frame_size, prob_size):
+    """The pair kernel's shared memory at 480×854: each slot holds a row's
+    span plus a 16-byte load of head and tail, on a 16-byte boundary; the
+    block holds PAIR_STAGES buffers of two frame and two plane slots, and
+    at least four blocks fit on an H100 SM."""
+    w = 854
+    frame_cap, plane_cap, total = port_kernel.pair_stage_bytes(w, frame_size, prob_size)
+    assert frame_cap % 16 == 0 and plane_cap % 16 == 0
+    assert frame_cap >= w * 3 * frame_size + 32 and plane_cap >= w * prob_size + 32
+    assert total == port_kernel.PAIR_STAGES * 2 * (frame_cap + plane_cap)
+    assert 4 * total <= port_kernel.MAX_SMEM
+    assert port_kernel.pair_stage_bytes(w, 2, 2)[2] == port_kernel.PAIR_STAGES * 13824
+
+
+def test_pair_stage_bytes_reject_a_frame_too_wide():
+    assert port_kernel.pair_stage_bytes(4096, 2, 2)[2] <= port_kernel.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        port_kernel.pair_stage_bytes(8192, 4, 4)
+
+
 @pytest.mark.parametrize("c,offset,want", [(4, 0, True), (4, 32, True), (1, 4, False),
                                            (3, 4, False), (2, 8, False), (5, 0, False)])
 def test_roi_crop_variant_follows_c(c, offset, want):
