@@ -60,7 +60,8 @@ with its own seconds:
    crop) against its plain version at one launch of that round, T=32, O=3
    (+ background plane, object offset 1), 480×854, 256² bf16 crops of bf16
    inputs, boxes from ``mask_to_yxhw`` of the seeded maps of 2 plus boxes
-   out of range; and in float32. Error, kernel / plain / library
+   out of range; and in float32; and the bf16 case with bf16 boxes (each
+   edge rounded to bf16 in the kernel). Error, kernel / plain / library
    (``affine_grid`` + ``grid_sample``) / bound times, ``device_ms`` and
    ``bound_share``; the traced call must hold the pair kernel alone (the
    wrapper converts no box with torch launches);
@@ -90,10 +91,31 @@ with its own seconds:
    then the given-box pair kernel) and with ``impl="pallas"`` (fused box),
    chunk by chunk, then the Brain's pick: scores agree within the bf16
    bound, the pair kernel's launches (zeroed just before) equal
-   ceil(T/32); both rounds timed.
+   ceil(T/32); both rounds timed;
+15. agent_update: 20 Q-updates of the Brain at full width (H=128, batch 32,
+   T=25 frames, the config's lr, weight decay and γ) on batches drawn from
+   a pool of 64 seeded transitions, on the card and from the same params
+   and batches on the host: losses and parameters within the CPU tests'
+   bounds, the same host-RNG draws; median ms per update and a profile of
+   one update (kernels per update, idle shares);
+16. agent_pipeline: ``produce_reward`` → ``pretrain_agent`` →
+   ``train_agent`` ``run`` on the card at the CPU tests' size (2 synthetic
+   clips, 8 frames at 64×48, FakeVOS, 3 rounds, batch 4): the agent on the
+   card, Q-updates ran, ``agent.pt`` reloads through
+   ``eval_agent.load_weights`` to the same Q-values;
+17. agent_wild: the wild-state Q-learning rollout (``run_interactive_phase``
+   with ``phase=train``, ``setting=wild``, ``method=ours``) on 2 demo clips
+   at 480×854 (48 frames, 3 objects, 25-frame windows, 5 rounds), seeded
+   TAPNet and the BN-folded bf16 AssessNet with ``bf16_inputs``, the pool
+   bootstrapped with 64 seeded transitions and a seeded reward table. The
+   fused-box kernel's launch count is zeroed just before and read just
+   after and must cover every round; at least 14 Q-updates (3·5 − 1 per
+   episode) must run on the card. Per round seg and rec ms, each episode's
+   update ms, peak memory.
 
 Then it prints the kernel table (one JSON object; each kernel's launches
-are those of its path's run: the TAPNet slice for the fused-box kernel, the
+are those of its path's run: the TAPNet slice for the fused-box kernel
+(the FakeVOS slice's and the agent rollout's under keys of their own), the
 training run for the crop kernel, the two-stage round for the pair kernel;
 the matrix crop is on no path; the fused-box, crop and pair kernels' rows
 also carry ``device_ms`` and ``bound_share``), the card's name and power limit as
@@ -164,6 +186,18 @@ PROFILE_CALLS = 5
 FUSEDBOX_KERNELS = ("fusedbox_box_kernel", "fusedbox_reduce_kernel", "fusedbox_crop_kernel")
 ROI_CROP_KERNELS = ("roi_crop_kernel",)
 PAIR_KERNELS = ("pair_crop_kernel",)
+# agent training: the Q-update at the config's widths (Brain H=128,
+# agent.train_batch_size, data.len_subseq), the wild rollout's episodes
+AGENT_T = 25
+AGENT_UPDATES = 20
+AGENT_POOL = 64
+AGENT_ROUNDS = 5
+AGENT_CLIPS = 2
+AGENT_FRAMES = 48
+# card vs host Q-updates: the bounds of the CPU tests against the JAX package
+# (tests/test_torch_agent_update.py): losses within 1e-5 relative, each
+# parameter within 1e-3·lr·updates + 2 ulp of the host's
+AGENT_LOSS_RTOL = 1e-5
 
 
 def log_phase(name: str, tic: float, **fields) -> None:
@@ -551,6 +585,7 @@ def profile_device(torch, fn, wall_ms: float, launched=(), top: int = 10):
         "compute_ms": compute_ms,
         "copy_ms": copy_ms,
         "compute_idle_share": 1.0 - compute_ms / profiled_ms,
+        "kernels_per_call": sum(e.count for e in device if not is_copy(e)) / PROFILE_CALLS,
         "device_idle_share": 1.0 - (compute_ms + copy_ms) / profiled_ms,
         "crop_kernels": crop,
         "top": [
@@ -887,6 +922,18 @@ def phase_kernel_roi_crop_pairs(torch, dev, kinfo, T):
             raise AssertionError(f"pair kernel vs plain ({dtype}): max abs err {err} (bound {atol})")
         errs[dtype] = (err, atol)
         del out, ref
+    # bf16 boxes: the edges rounded to bf16 in the kernel, as in the plain version
+    frames, probs, yxhw = pair_case(torch, dev, T, torch.bfloat16)
+    yxhw = yxhw.to(torch.bfloat16)
+    out = roi_crop_pairs(frames, probs, yxhw, S, torch.bfloat16, **kw)
+    ref = roi_crop_pairs_reference(frames, probs, yxhw, S, torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    if not err <= PAIR_BF16_ATOL:
+        raise AssertionError(f"pair kernel vs plain (bf16 boxes): max abs err {err} "
+                             f"(bound {PAIR_BF16_ATOL})")
+    errs["bf16_boxes"] = (err, PAIR_BF16_ATOL)
+    del out, ref
 
     frames, probs, yxhw = pair_case(torch, dev, T, torch.bfloat16)
     boxes = torch.stack(yxhw_to_minmax(yxhw), dim=1)
@@ -917,6 +964,7 @@ def phase_kernel_roi_crop_pairs(torch, dev, kinfo, T):
         inputs="torch.bfloat16",
         max_abs_err_bf16=errs[torch.bfloat16][0], bound_bf16=errs[torch.bfloat16][1],
         max_abs_err_f32=errs[torch.float32][0], bound_f32=errs[torch.float32][1],
+        max_abs_err_bf16_boxes=errs["bf16_boxes"][0],
         kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bound_ms, bound_share=bound_ms / device_ms, device_ms_by_kernel=split,
         bytes={"in": bytes_in, "out": bytes_out}, timing_launches=timing_launches,
@@ -1274,6 +1322,264 @@ def phase_two_stage(torch, dev, frames, all_p, assess_net, agent):
     return launches
 
 
+def agent_transitions(n, t, seed, names=("seq",)):
+    """``n`` seeded transitions of ``t`` frames (the replay schema)."""
+    import numpy as np
+
+    from ivosw_tpu_torch.data.replay import Transition
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        counts = rng.integers(0, 3, t).astype(np.float32)
+        action = int(rng.integers(t))
+        nxt = counts.copy()
+        nxt[action] += 1
+        out.append(Transition(
+            sequence=names[i % len(names)], scribble_iter=1 + i % 3, n_interaction=1 + i % 4,
+            n_interaction_next=2 + i % 4, action=action, reward_step=float(rng.choice([1.0, -1.0])),
+            reward_done=float(rng.normal()), done=i % 4 == 3,
+            state_iou=rng.random(t, dtype=np.float32), next_state_iou=rng.random(t, dtype=np.float32),
+            annotated_frames=counts, next_annotated_frames=nxt,
+        ))
+    return out
+
+
+def brain_params_close(got, ref, lr, steps):
+    """Largest |got - ref| over the Brain's parameters and whether each lies
+    within 1e-3·lr·steps + 2 ulp of ``ref`` (state dicts)."""
+    import numpy as np
+
+    worst, ok = 0.0, True
+    for k, r in ref.items():
+        r = r.detach().cpu().numpy()
+        err = np.abs(got[k].detach().cpu().numpy() - r)
+        ok &= bool((err <= 1e-3 * lr * steps + 2 * np.spacing(np.abs(r))).all())
+        worst = max(worst, float(err.max()))
+    return worst, ok
+
+
+def phase_agent_update(torch, dev, kinfo):
+    """20 Q-updates at full width on the card and the same 20 on the host."""
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.models.agent import Agent
+
+    tic = time.perf_counter()
+    cfg = Config(phase="train", seed=SEED)
+    b = cfg.agent.train_batch_size
+    card, host = Agent(cfg, device=dev), Agent(cfg, device="cpu")
+    host.brain.load_state_dict(card.brain.state_dict())
+    host.sync_target()
+    for tr in agent_transitions(AGENT_POOL, AGENT_T, SEED):
+        card.memory_pool.push(tr)
+    sampler = np.random.default_rng(SEED)
+    batches = [card.memory_pool.sample_batch(b, sampler) for _ in range(AGENT_UPDATES)]
+
+    # warm-up on a throwaway agent: cuBLAS handles and the first launches
+    Agent(cfg, device=dev).update_agent(batches[0])
+
+    losses, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(card.update_agent(batch))
+        ms.append((time.perf_counter() - t0) * 1e3)  # update_agent reads the loss: synced
+    host_losses = [host.update_agent(batch) for batch in batches]
+    loss_err = float(np.max(np.abs(np.array(losses) - host_losses) / np.abs(host_losses)))
+    param_err, params_ok = brain_params_close(card.brain.state_dict(), host.brain.state_dict(),
+                                              cfg.agent.lr, AGENT_UPDATES)
+    if not (loss_err <= AGENT_LOSS_RTOL and params_ok and np.isfinite(losses).all()):
+        raise AssertionError(f"card vs host Q-updates: loss rel err {loss_err} (bound "
+                             f"{AGENT_LOSS_RTOL}), param max abs err {param_err}, within "
+                             f"1e-3·lr·updates + 2 ulp: {params_ok}")
+    if card.host_rng.random() != host.host_rng.random():
+        raise AssertionError("card and host agents drew different host-RNG streams")
+    profile = profile_device(torch, lambda: card.update_agent(batches[0]), float(np.median(ms)))
+    log_phase("agent_update", tic, batch=b, frames=AGENT_T, updates=AGENT_UPDATES,
+              lr=cfg.agent.lr, update_ms_median=float(np.median(ms)), update_ms=ms,
+              losses=losses, loss_max_rel_err=loss_err, param_max_abs_err=param_err,
+              kernels_per_update=profile["kernels_per_call"],
+              card=kinfo["name"], power_limit=kinfo["power_limit"])
+    print(json.dumps({"phase": "agent_update_profile", **profile}), flush=True)
+
+
+def agent_cfg(Config, root, **kw):
+    cfg = Config(**kw)
+    cfg.data.len_subseq = 6
+    cfg.davis_interactive.max_nb_interactions = 3
+    cfg.agent.save_result_dir = os.path.join(root, "train")
+    cfg.agent.train_batch_size = 4
+    cfg.ckpt_dir = os.path.join(root, "weights")
+    return cfg
+
+
+def phase_agent_pipeline(torch, dev):
+    """produce_reward → pretrain_agent → train_agent ``run`` on the card at
+    the CPU tests' size (tests/test_torch_agent_pipeline.py)."""
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.data.registry import SequenceRegistry
+    from ivosw_tpu_torch.eval.eval_agent import load_weights
+    from ivosw_tpu_torch.models.agent import Agent
+    from ivosw_tpu_torch.models.vos.fake import FakeVOS
+    from ivosw_tpu_torch.train import pretrain_agent, produce_reward, train_agent
+
+    tic = time.perf_counter()
+    registry = SequenceRegistry.synthetic(["gamma", "delta"], num_frames=8, image_size=(64, 48),
+                                          num_objects=1, split="train", seed=1)
+    adapter = lambda: FakeVOS(registry, base_quality=0.3, gain=0.5, tau=1.5, max_quality=0.75)
+    log = logging.getLogger("chip_smoke.agent")
+    log.handlers = [logging.NullHandler()]
+    log.propagate = False
+    seconds = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, stage, epochs in (("produce_reward", produce_reward, 2),
+                                    ("pretrain_agent", pretrain_agent, 2),
+                                    ("train_agent", train_agent, 1)):
+            t0 = time.perf_counter()
+            cfg = stage.configure(agent_cfg(Config, root))
+            cfg.num_epochs = epochs
+            cfg.agent.sample_th = 0.01
+            stats, agent = stage.run(cfg, registry=registry, adapter=adapter(), log=log,
+                                     device=dev)
+            seconds[name] = time.perf_counter() - t0
+        on_card = {p.device for p in agent.brain.parameters()} | {
+            p.device for p in agent.target.parameters()}
+        if on_card != {dev}:
+            raise AssertionError(f"agent parameters on {on_card}, expected {dev}")
+        if not (stats["update_loss_avg"] > 0 and np.isfinite(stats["update_loss_avg"])):
+            raise AssertionError(f"no Q-update ran on the card: {stats}")
+        fresh = Agent(Config(phase="eval", seed=SEED + 1), device=dev)
+        if not load_weights(fresh.brain, cfg.ckpt_dir, "agent.pt"):
+            raise AssertionError("agent.pt was not written")
+        state = np.random.default_rng(SEED).random((AGENT_T, 2)).astype(np.float32)
+        q_err = float(np.abs(fresh.q_values(state) - agent.q_values(state)).max())
+        if not q_err <= 1e-6:
+            raise AssertionError(f"agent.pt reloads to other Q-values: max abs diff {q_err}")
+    log_phase("agent_pipeline", tic, stage_seconds=seconds, train_stats=stats,
+              steps_done=agent.steps_done, reload_q_max_abs_diff=q_err)
+
+
+def phase_agent_wild(torch, dev, kinfo):
+    """The slice's path: the wild-state Q-learning rollout with TAPNet and
+    the bf16 AssessNet at 480×854, the pool bootstrapped so every episode
+    ends with 3·rounds − 1 Q-updates on the card."""
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.data.demo import DemoSpec, demo_training_registry
+    from ivosw_tpu_torch.interact.recommend import RewardTable
+    from ivosw_tpu_torch.interact.session import InteractiveSession
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop_pairs_fusedbox
+    from ivosw_tpu_torch.models.vos.tapnet import TAPNetAdapter
+    from ivosw_tpu_torch.train import rollout
+
+    tic = time.perf_counter()
+    spec = DemoSpec(h=H, w=W, num_frames=AGENT_FRAMES, num_objects=O, blob=BLOB)
+    registry = demo_training_registry(n_clips=AGENT_CLIPS, seed=SEED, spec=spec)
+    names = registry.subset("train")
+    cfg = Config(phase="train", setting="wild", method="ours", vos="tapnet", dataset="demo",
+                 seed=SEED)
+    cfg.num_epochs = 1
+    cfg.data.len_subseq = AGENT_T
+    cfg.davis_interactive.max_nb_interactions = AGENT_ROUNDS
+    cfg.assess_net.bf16_inputs = True
+    assess_net, agent = make_models(torch, dev, cfg, SEED)
+    for tr in agent_transitions(AGENT_POOL, AGENT_T, SEED + 1, names):
+        agent.memory_pool.push(tr)
+    table = RewardTable()
+    rng = np.random.default_rng(SEED)
+    for name in names:
+        for n in range(2, AGENT_ROUNDS + 1):
+            for scribble_iter in (1, 2, 3):
+                for v in rng.uniform(0.2, 0.9, 30):
+                    table.add(name, n, scribble_iter, float(v))
+    adapter = TAPNetAdapter.create(seed=SEED, qa_dtype=torch.bfloat16, device=dev)
+    log = logging.getLogger("chip_smoke.agent_wild")
+    log.handlers = [logging.NullHandler()]
+    log.propagate = False
+
+    seg_ms, rec_ms, update_ms, losses = [], [], [], []
+    encode_ms, metric_ms, submit_ms = [], [], []
+    segment, recommend, update = adapter.segment, rollout.recommend_frame, agent.update_agent
+    begin, metric, submit = (adapter.begin_sequence, rollout.sequence_metric,
+                             InteractiveSession.submit_masks)
+
+    def synced(store, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            store.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def recorded_update(batch):
+        losses.append(synced(update_ms, update)(batch))
+        return losses[-1]
+
+    # the host's share of a round: the window's J&F, and the session's
+    # submission (J&F of the whole clip, then the robot's next scribble)
+    adapter.segment = synced(seg_ms, segment)
+    adapter.begin_sequence = synced(encode_ms, begin)
+    rollout.recommend_frame = synced(rec_ms, recommend)
+    rollout.sequence_metric = synced(metric_ms, metric)
+    InteractiveSession.submit_masks = synced(submit_ms, submit)
+    agent.update_agent = recorded_update
+    setup_s = time.perf_counter() - tic
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            cfg.agent.save_result_dir = out
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            roi_crop_pairs_fusedbox.launches = 0
+            t0 = time.perf_counter()
+            stats = rollout.run_interactive_phase(
+                cfg, registry, adapter, agent, reward_table=table, assess_net=assess_net,
+                log=log)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = roi_crop_pairs_fusedbox.launches
+            peak_bytes = torch.cuda.max_memory_allocated(dev)
+    finally:
+        rollout.recommend_frame, rollout.sequence_metric = recommend, metric
+        InteractiveSession.submit_masks = submit
+    adapter.segment, adapter.begin_sequence, agent.update_agent = segment, begin, update
+
+    rounds = AGENT_CLIPS * AGENT_ROUNDS
+    updated = [x for x in losses if x is not None]
+    recorded = [agent.memory_pool.memory[-1 - i] for i in range(AGENT_CLIPS * (AGENT_ROUNDS - 1))]
+    if stats["episodes"] != AGENT_CLIPS or len(seg_ms) != rounds or len(rec_ms) != rounds:
+        raise AssertionError(f"{stats['episodes']} episodes, {len(seg_ms)} rounds, expected "
+                             f"{AGENT_CLIPS} and {rounds}")
+    if launches < rounds:
+        raise AssertionError(f"fused-box kernel launched {launches}x in {rounds} wild rounds")
+    if len(updated) < 3 * AGENT_ROUNDS - 1 or not np.isfinite(updated).all():
+        raise AssertionError(f"{len(updated)} Q-updates ran (losses {losses})")
+    if {p.device for p in agent.brain.parameters()} != {dev}:
+        raise AssertionError("the agent left the card")
+    for tr in recorded:
+        if (len(tr.state_iou) != AGENT_T or not np.isfinite(tr.state_iou).all()
+                or not np.isfinite(tr.next_state_iou).all() or not np.isfinite(tr.reward_done)):
+            raise AssertionError(f"malformed transition {tr}")
+    per_episode = 3 * AGENT_ROUNDS - 1
+    log_phase(
+        "agent_wild", tic, setup_seconds=setup_s, run_seconds=run_s, episodes=stats["episodes"],
+        rounds=rounds, frames=AGENT_T, launches=launches, updates=len(updated),
+        seg_ms=seg_ms, rec_ms=rec_ms, window_metric_ms=metric_ms, submit_ms=submit_ms,
+        encode_ms=encode_ms,
+        episode_update_ms=[sum(update_ms[i:i + per_episode])
+                           for i in range(0, len(update_ms), per_episode)],
+        update_ms_median=float(np.median(update_ms)), update_loss_avg=stats["update_loss_avg"],
+        peak_memory_bytes=peak_bytes, card=kinfo["name"], power_limit=kinfo["power_limit"],
+    )
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1319,6 +1625,9 @@ def main() -> int:
     phase_tapnet_small(torch, dev)
     launches, frames, all_p, assess_net, agent = phase_tapnet_slice(torch, dev, kinfo)
     pair_launches = phase_two_stage(torch, dev, frames, all_p, assess_net, agent)
+    phase_agent_update(torch, dev, kinfo)
+    phase_agent_pipeline(torch, dev)
+    agent_launches = phase_agent_wild(torch, dev, kinfo)
 
     def row(name, source, replaces, launches, st, bound_by, path):
         return {
@@ -1332,6 +1641,7 @@ def main() -> int:
     fused = row("roi_crop_pairs_fusedbox", "roi_crop_fusedbox.cu", 461, launches, stats, "bytes",
                 "tapnet_slice (bf16 inputs)")
     fused["float32_inputs"] = {"launches": fake_launches, "path": "slice", **f32_stats}
+    fused["agent_wild"] = {"launches": agent_launches, "path": "agent_wild (bf16 inputs)"}
     kernels = [
         fused,
         row("roi_crop", "roi_crop.cu", 67, crop_launches, crop_stats, "bytes", "train"),

@@ -12,13 +12,15 @@ unless the caller passes ``device="cpu"``; without a GPU they raise.
 Subpackages
 -----------
 core      config dataclasses, ``key=value`` overrides, a YAML-free loader
-data      scribble dicts, the in-memory registry, the demo clip generator
+data      scribble dicts, the in-memory registry, the demo clip generator,
+          the replay pool
 interact  interactive session, cv2-free scribble robot, frame recommendation
 ops       J&F metrics (scipy), ROI geometry (torch)
 kernels   hand-written CUDA kernels for Hopper and their plain versions
 models    ResNet-50 AssessNet (+ BN folding), BiLSTM Brain, DQN agent, VOS
 eval      interactive evaluation driver
-utils     seeding, meters, timers, weight conversion from numpy trees
+train     AssessNet and agent training stages, the rollout loop
+utils     seeding, meters, timers, weight conversion, agent checkpoints
 """
 
 __version__ = "0.1.0"

@@ -12,8 +12,11 @@
 // r samples at cy = ymin + (ymax - ymin) * (r / (S - 1)), column j at the
 // same formula in x, each tap s weighs max(0, 1 - |c - s|), zeros outside
 // the image. Inputs: frames NHWC [T, H, W, 3] and planes [T, P, H, W], each
-// f32 or bf16, and yxhw [T*O, 4] f32 read through its two strides. Output
-// NHWC [T*O, S, S, 4] (rgb + prob) in the working type (f32 or bf16).
+// f32 or bf16, and yxhw [T*O, 4] f32 or bf16 read through its two strides
+// (bf16 boxes: each edge y -+ h/2, x -+ w/2 rounded to bf16, as the TPU
+// function computes yxhw_to_minmax in the boxes' type before its float32
+// cast, :320-321, then widened). Output NHWC [T*O, S, S, 4] (rgb + prob)
+// in the working type (f32 or bf16).
 //
 // Rounding: in bf16 the TPU kernel rounds its inputs, both interpolation
 // matrices and the row-contracted intermediate (Ry @ img) to bf16 and
@@ -115,10 +118,20 @@ struct Box {
   float ymin, ymax, xmin, xmax;
 };
 
-// (y, x, h, w) -> (ymin, ymax, xmin, xmax), ops/roi.py::yxhw_to_minmax
-__device__ __forceinline__ Box load_box(const float* __restrict__ yxhw, int64_t stride) {
-  const float y = __ldg(yxhw), x = __ldg(yxhw + stride);
-  const float h = __ldg(yxhw + 2 * stride), w = __ldg(yxhw + 3 * stride);
+// (y, x, h, w) -> (ymin, ymax, xmin, xmax), ops/roi.py::yxhw_to_minmax in
+// the boxes' type: f32, or bf16 with each edge rounded to bf16 (h / 2 is
+// exact) and then widened to f32
+__device__ __forceinline__ Box load_box(const void* __restrict__ yxhw, int64_t stride,
+                                        int box_bf16) {
+  if (box_bf16) {
+    const bf16* b = static_cast<const bf16*>(yxhw);
+    const float y = f32(b[0]), x = f32(b[stride]), h = f32(b[2 * stride]), w = f32(b[3 * stride]);
+    return {rnd<bf16>(y - h / 2.0f), rnd<bf16>(y + h / 2.0f), rnd<bf16>(x - w / 2.0f),
+            rnd<bf16>(x + w / 2.0f)};
+  }
+  const float* b = static_cast<const float*>(yxhw);
+  const float y = __ldg(b), x = __ldg(b + stride);
+  const float h = __ldg(b + 2 * stride), w = __ldg(b + 3 * stride);
   return {y - h / 2.0f, y + h / 2.0f, x - w / 2.0f, x + w / 2.0f};
 }
 
@@ -237,7 +250,7 @@ template <typename FrameT, typename ProbT, typename OutT>
 __global__ void __launch_bounds__(kThreads) pair_crop_kernel(
     const FrameT* __restrict__ frames, const ProbT* __restrict__ probs,
     int planes_per_frame, int obj_offset, int num_objects, int H, int W, int S,
-    const float* __restrict__ yxhw, int64_t box_stride0, int64_t box_stride1,
+    const char* __restrict__ yxhw, int64_t box_stride0, int64_t box_stride1, int box_bf16,
     int frame_load, int plane_load, int frame_cap, int plane_cap, OutT* __restrict__ out) {
   extern __shared__ __align__(16) char smem[];
   __shared__ uint64_t bars[kStages];
@@ -251,7 +264,8 @@ __global__ void __launch_bounds__(kThreads) pair_crop_kernel(
   const int pair = blockIdx.y;
   const int t = pair / num_objects;
   const int o = pair - t * num_objects;
-  const Box box = load_box(yxhw + (int64_t)pair * box_stride0, box_stride1);
+  const Box box = load_box(yxhw + (int64_t)pair * box_stride0 * (box_bf16 ? 2 : 4),
+                           box_stride1, box_bf16);
   const float denom = (float)(S - 1);
 
   // the span of columns any tap reaches: the first tap moves monotonically
@@ -402,9 +416,9 @@ __global__ void __launch_bounds__(kThreads) pair_crop_kernel(
 
 template <typename FrameT, typename ProbT, typename OutT>
 int launch_typed(const void* frames, const void* probs, int T, int planes_per_frame,
-                 int obj_offset, int num_objects, int H, int W, int S, const float* yxhw,
-                 long long box_stride0, long long box_stride1, int frame_load, int plane_load,
-                 int frame_cap, int plane_cap, void* out, cudaStream_t st) {
+                 int obj_offset, int num_objects, int H, int W, int S, const char* yxhw,
+                 long long box_stride0, long long box_stride1, int box_bf16, int frame_load,
+                 int plane_load, int frame_cap, int plane_cap, void* out, cudaStream_t st) {
   auto kernel = pair_crop_kernel<FrameT, ProbT, OutT>;
   const int smem = kStages * 2 * (frame_cap + plane_cap);
   cudaError_t err =
@@ -413,22 +427,22 @@ int launch_typed(const void* frames, const void* probs, int T, int planes_per_fr
   const dim3 grid((S + kRows - 1) / kRows, T * num_objects);
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const FrameT*>(frames), static_cast<const ProbT*>(probs), planes_per_frame,
-      obj_offset, num_objects, H, W, S, yxhw, box_stride0, box_stride1, frame_load,
+      obj_offset, num_objects, H, W, S, yxhw, box_stride0, box_stride1, box_bf16, frame_load,
       plane_load, frame_cap, plane_cap, static_cast<OutT*>(out));
   return (int)cudaGetLastError();
 }
 
 template <typename FrameT, typename ProbT>
 int launch(int out_bf16, const void* frames, const void* probs, int T, int planes_per_frame,
-           int obj_offset, int num_objects, int H, int W, int S, const float* yxhw,
-           long long box_stride0, long long box_stride1, int frame_load, int plane_load,
-           int frame_cap, int plane_cap, void* out, cudaStream_t st) {
+           int obj_offset, int num_objects, int H, int W, int S, const char* yxhw,
+           long long box_stride0, long long box_stride1, int box_bf16, int frame_load,
+           int plane_load, int frame_cap, int plane_cap, void* out, cudaStream_t st) {
   if (out_bf16)
     return launch_typed<FrameT, ProbT, bf16>(frames, probs, T, planes_per_frame, obj_offset,
-        num_objects, H, W, S, yxhw, box_stride0, box_stride1, frame_load, plane_load,
-        frame_cap, plane_cap, out, st);
+        num_objects, H, W, S, yxhw, box_stride0, box_stride1, box_bf16, frame_load,
+        plane_load, frame_cap, plane_cap, out, st);
   return launch_typed<FrameT, ProbT, float>(frames, probs, T, planes_per_frame, obj_offset,
-      num_objects, H, W, S, yxhw, box_stride0, box_stride1, frame_load, plane_load,
+      num_objects, H, W, S, yxhw, box_stride0, box_stride1, box_bf16, frame_load, plane_load,
       frame_cap, plane_cap, out, st);
 }
 
@@ -440,7 +454,8 @@ bool load_width(int bytes, int itemsize) {
 
 // frames [T, H, W, 3] and probs [T, planes_per_frame, H, W] (f32 or bf16,
 // flags), planes obj_offset .. obj_offset+num_objects-1 cropped; yxhw
-// [T*num_objects, 4] f32 with element strides (box_stride0, box_stride1);
+// [T*num_objects, 4] f32 or bf16 (box_bf16) with element strides
+// (box_stride0, box_stride1);
 // out [T*num_objects, S, S, 4] bf16 or f32. frame_load and plane_load: the
 // load widths (16, 8, 4 or 2 bytes, each dividing its tensor's base and one
 // frame's or plane's byte size); frame_cap and plane_cap: the shared-memory
@@ -450,8 +465,8 @@ bool load_width(int bytes, int itemsize) {
 extern "C" int ivosw_roi_crop_pairs(
     const void* frames, const void* probs, int frames_bf16, int probs_bf16, int T,
     int planes_per_frame, int obj_offset, int num_objects, int H, int W, int S,
-    const void* yxhw, long long box_stride0, long long box_stride1, int frame_load,
-    int plane_load, int frame_cap, int plane_cap, void* out, int out_bf16,
+    const void* yxhw, long long box_stride0, long long box_stride1, int box_bf16,
+    int frame_load, int plane_load, int frame_cap, int plane_cap, void* out, int out_bf16,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T * num_objects == 0) return 0;
@@ -460,11 +475,11 @@ extern "C" int ivosw_roi_crop_pairs(
       frame_cap % 16 || plane_cap % 16 || frame_cap < W * 3 * frame_size + 2 * frame_load ||
       plane_cap < W * prob_size + 2 * plane_load)
     return (int)cudaErrorInvalidValue;
-  const float* b = static_cast<const float*>(yxhw);
+  const char* b = static_cast<const char*>(yxhw);
 #define IVOSW_LAUNCH(F, P)                                                                \
   launch<F, P>(out_bf16, frames, probs, T, planes_per_frame, obj_offset, num_objects, H, W, \
-               S, b, box_stride0, box_stride1, frame_load, plane_load, frame_cap, plane_cap, \
-               out, st)
+               S, b, box_stride0, box_stride1, box_bf16, frame_load, plane_load, frame_cap, \
+               plane_cap, out, st)
   if (frames_bf16 && probs_bf16) return IVOSW_LAUNCH(bf16, bf16);
   if (frames_bf16) return IVOSW_LAUNCH(bf16, float);
   if (probs_bf16) return IVOSW_LAUNCH(float, bf16);

@@ -1,27 +1,112 @@
 """Frame-recommendation policy layer.
 
-Counterpart of ``ivosw_tpu/interact/recommend.py`` for evaluation:
-``select_next_frame``, ``gen_subseq``, ``smooth_clip_quality`` and the
-setting×method dispatch ``recommend_frame`` are copies; in the wild setting
-:func:`predict_clip_quality` scores all T×O pairs on the device of the
-frames through :func:`ivosw_tpu_torch.models.assess.score_clip`, in
-fixed-size frame chunks (the padded tail is scored and dropped, as the JAX
-package's static-shape chunks are). The reward table and ``agent_business``
-come with the agent-training slice; the sequence-parallel mesh path with
-the parallelism slice.
+Counterpart of ``ivosw_tpu/interact/recommend.py``:
+``select_next_frame``, ``gen_subseq``, ``smooth_clip_quality``, the
+setting×method dispatch ``recommend_frame``, the reward table with Eq. 3's
+``goal_only_reward`` and the per-round ``agent_business`` are copies; in the
+wild setting :func:`predict_clip_quality` scores all T×O pairs on the
+device of the frames through :func:`ivosw_tpu_torch.models.assess.score_clip`,
+in fixed-size frame chunks (the padded tail is scored and dropped, as the
+JAX package's static-shape chunks are). The sequence-parallel mesh path
+comes with the parallelism slice.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ivosw_tpu_torch.data.replay import Transition, read_csv_rows
 from ivosw_tpu_torch.device import check_on_device
 from ivosw_tpu_torch.models.assess import score_clip
 
 FRAME_CHUNK = 32
+
+
+# ----------------------------------------------------------------- reward --
+class RewardTable:
+    """Baseline episode statistics backing Eq. 3's normalised terminal reward.
+
+    Produced by the reward-production phase (random-policy epochs,
+    ``train/produce_reward.py``); keyed by (sequence, terminal interaction
+    round, scribble-iter mod 3) as the reference's ``goal_only_reward``
+    filters its table (utils/utils_agent.py:11-20)."""
+
+    def __init__(self):
+        self._records: List[Dict] = []
+
+    def add(self, sequence: str, n_interaction_next: int, scribble_iter: int,
+            next_state_iou_mean: float) -> None:
+        self._records.append(
+            dict(
+                sequence=sequence,
+                n_interaction_next=int(n_interaction_next),
+                scribble_iter=int(scribble_iter),
+                iou=float(next_state_iou_mean),
+            )
+        )
+
+    @classmethod
+    def from_csv(cls, path: str) -> "RewardTable":
+        """Load a reference-format reward.csv (memory-pool schema)."""
+        table = cls()
+        for row in read_csv_rows(path):
+            iou = np.mean([float(v) for v in row["next_state_iou"].split("/")])
+            table.add(
+                row["sequence"],
+                int(row["n_interaction_next"]),
+                int(row["scribble_iter"]),
+                iou,
+            )
+        return table
+
+    def baseline(
+        self, sequence: str, n_interaction: int, scribble_iter: int
+    ) -> np.ndarray:
+        vals = [
+            r["iou"]
+            for r in self._records
+            if r["sequence"] == sequence
+            and r["n_interaction_next"] == n_interaction
+            and (r["scribble_iter"] - 1) % 3 == (scribble_iter - 1) % 3
+        ]
+        return np.asarray(vals, dtype=np.float64)
+
+    def __len__(self):
+        return len(self._records)
+
+
+def goal_only_reward(
+    sequence: str,
+    n_interaction: int,
+    scribble_iter: int,
+    repeat_selection: bool,
+    iou_new: np.ndarray,
+    table: Optional[RewardTable] = None,
+    expected_count: Optional[int] = None,
+) -> Tuple[float, float]:
+    """reward_step = ±1 (repeat penalty); reward_done = Eq. 3
+    ``(J&F − μ − σ)/σ`` against the baseline episodes (σ with ddof=1).
+    ``expected_count`` checks the baseline count (the reference pins 30;
+    the JAX package asserts it, the port raises ``ValueError``).
+    Fewer than two baselines or σ < 1e-6 give reward_done 0."""
+    reward_step = 1.0 if not repeat_selection else -1.0
+    if table is None:
+        return reward_step, 0.0
+    prev = table.baseline(sequence, n_interaction, scribble_iter)
+    if expected_count is not None and len(prev) != expected_count:
+        raise ValueError(
+            f"baseline count {len(prev)} != {expected_count} for "
+            f"{sequence}/{n_interaction}/{scribble_iter}"
+        )
+    if len(prev) < 2 or prev.std(ddof=1) < 1e-6:
+        return reward_step, 0.0
+    metric = float(np.mean(iou_new))
+    mean, std = prev.mean(), prev.std(ddof=1)
+    reward_done = (metric - mean - std) / std
+    return reward_step, float(reward_done)
 
 
 # ---------------------------------------------------------------- selects --
@@ -229,3 +314,92 @@ def recommend_frame(
         raise NotImplementedError(f"wild/{method}")
 
     raise NotImplementedError(setting)
+
+
+# --------------------------------------------------------- agent business --
+def agent_business(
+    cfg,
+    agent,
+    max_nb_interactions: int,
+    n_interaction: int,
+    first_scribble: bool,
+    old_masks_metric: np.ndarray,
+    new_masks_metric: np.ndarray,
+    old_frame: int,
+    sequence: str,
+    scribble_iter: int,
+    repeat_selection: bool,
+    reward_table: Optional[RewardTable],
+    annotated_frames_list: List[int],
+    next_frame: int,
+    report_save_dir: str,
+    expected_count: Optional[int] = None,
+    state_override=None,
+):
+    """Per-round transition collection and episode-end Q-updates
+    (reference utils/utils_agent.py:207-256).
+
+    Returns (mean update loss, reward_step, reward_done). In phase 'train'
+    the final round of an episode runs ``max_nb_interactions·3 − 1`` replay
+    updates, each on a batch drawn from the agent's host RNG; other phases
+    only record. (The JAX function's unused ``num_updates`` and
+    ``batch_sampler`` options are left out.) ``state_override=(old_state,
+    new_state)`` records those per-frame quality arrays as the transition's
+    state and next state instead of the true metrics (the wild fine-tune's
+    predicted states); rewards stay ground-truth J&F."""
+    agent_loss = 0.0
+    reward_step, reward_done = 0.0, 0.0
+    if first_scribble or cfg.phase == "eval":
+        return agent_loss, reward_step, reward_done
+
+    reward_step, reward_done = goal_only_reward(
+        sequence,
+        n_interaction,
+        scribble_iter,
+        repeat_selection,
+        new_masks_metric,
+        table=reward_table,
+        expected_count=expected_count,
+    )
+    t = len(new_masks_metric)
+    counts = np.zeros(t, dtype=np.float32)
+    for i in annotated_frames_list:
+        counts[i] += 1
+    next_counts = counts.copy()
+    next_counts[next_frame] += 1
+    done = n_interaction >= max_nb_interactions
+
+    state_arr, next_state_arr = (
+        state_override if state_override is not None
+        else (old_masks_metric, new_masks_metric)
+    )
+    agent.memory(
+        Transition(
+            sequence=sequence,
+            scribble_iter=scribble_iter,
+            n_interaction=n_interaction - 1,
+            n_interaction_next=n_interaction,
+            action=int(old_frame),
+            reward_step=reward_step,
+            reward_done=reward_done,
+            done=done,
+            state_iou=np.asarray(state_arr, dtype=np.float32),
+            next_state_iou=np.asarray(next_state_arr, dtype=np.float32),
+            annotated_frames=counts,
+            next_annotated_frames=next_counts,
+        ),
+        report_save_dir,
+    )
+
+    if n_interaction == max_nb_interactions and cfg.phase == "train":
+        losses = []
+        for _ in range(max_nb_interactions * 3 - 1):
+            batch = agent.memory_pool.sample_batch(
+                cfg.agent.train_batch_size, agent.host_rng
+            )
+            loss = agent.update_agent(batch)
+            if loss is not None:
+                losses.append(loss)
+        agent_loss = float(np.mean(losses)) if losses else 0.0
+
+    return agent_loss, reward_step, reward_done

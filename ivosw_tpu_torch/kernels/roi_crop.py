@@ -37,8 +37,8 @@ float32 or bfloat16 (``assess_net.bf16_inputs``); an adapter's
   bfloat16 it agrees with the plain version to :data:`PAIR_BF16_ATOL` (one
   ulp at 1, for a sum order neither side fixes); in float32 to
   :data:`F32_CROP_ATOL`. One launch per call: the kernel reads the float32
-  boxes through their strides and converts them itself, and stages spans
-  of source rows in shared memory (slots sized by
+  or bfloat16 boxes through their strides and converts them itself, and
+  stages spans of source rows in shared memory (slots sized by
   :func:`pair_stage_bytes`) with loads as wide as :func:`span_load_bytes`
   allows.
 - :func:`roi_crop_pairs_premat` (``csrc/roi_crop_pairs_premat.cu``, replaces
@@ -281,8 +281,10 @@ def roi_crop_pairs_premat_reference(
 
 def interp_matrices(yxhw, h: int, w: int, out_size: int = ROI_S, dtype=torch.float32):
     """Ry [B, S, H] and Rx [B, S, W] of yxhw boxes [B, 4] in ``dtype``
-    (``_interp_matrix`` of the box edges, as ``roi_pallas.py:599-601``)."""
-    ymin, ymax, xmin, xmax = yxhw_to_minmax(yxhw.float())
+    (``_interp_matrix`` of the box edges, as ``roi_pallas.py:599-601``).
+    The edges are computed in the boxes' type, then widened to float32, as
+    ``roi_pallas.py:320-321`` does for the pair kernel."""
+    ymin, ymax, xmin, xmax = (e.float() for e in yxhw_to_minmax(yxhw))
     return (_interp_matrix(ymin, ymax, h, out_size).to(dtype),
             _interp_matrix(xmin, xmax, w, out_size).to(dtype))
 
@@ -400,17 +402,19 @@ def roi_crop_pairs(
 ):
     """All T×O pair crops in given yxhw boxes [T·O, 4] → [T·O, S, S, 4] in
     ``dtype``; frames and probs as :func:`roi_crop_pairs_fusedbox` takes
-    them, yxhw float32 on the same device (any strides). One launch: the
-    kernel turns the boxes into (ymin, ymax, xmin, xmax) itself, as
-    ``roi_pallas.py:320-321`` does inside the TPU function, and this wrapper
-    does no tensor work besides allocating the output."""
+    them, yxhw float32 or bfloat16 on the same device (any strides; another
+    type raises ``TypeError`` on either device). One launch: the kernel
+    turns the boxes into (ymin, ymax, xmin, xmax) itself, in the boxes' type
+    and then widened to float32, as ``roi_pallas.py:320-321`` does inside
+    the TPU function, and this wrapper does no tensor work besides
+    allocating the output."""
+    if yxhw.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"need float32 or bfloat16 yxhw boxes, got {yxhw.dtype}")
     if _on_cpu(frames, probs, yxhw):
         return roi_crop_pairs_reference(frames, probs, yxhw, out_size, dtype, obj_offset,
                                         num_objects)
     t, h, w = _check_pair_inputs(frames, probs, out_size, dtype)
     o = _selected_planes(probs, obj_offset, num_objects)
-    if yxhw.dtype != torch.float32:
-        raise TypeError(f"need float32 yxhw boxes, got {yxhw.dtype}")
     if tuple(yxhw.shape) != (t * o, 4):
         raise ValueError(f"need yxhw [{t * o}, 4], got {tuple(yxhw.shape)}")
     if t * o > MAX_PAIRS or h * w * 3 >= 2**31:
@@ -426,7 +430,7 @@ def roi_crop_pairs(
         _ptr, _ptr, _c_int, _c_int,  # frames, probs, their bf16 flags
         _c_int, _c_int, _c_int, _c_int,  # T, planes per frame, obj offset, O
         _c_int, _c_int, _c_int,  # H, W, S
-        _ptr, _c_longlong, _c_longlong,  # yxhw and its strides
+        _ptr, _c_longlong, _c_longlong, _c_int,  # yxhw, its strides, its bf16 flag
         _c_int, _c_int, _c_int, _c_int,  # load widths, row slots
         _ptr, _c_int,  # out, out_bf16
         _ptr,  # stream
@@ -435,7 +439,7 @@ def roi_crop_pairs(
     err = fn(
         frames.data_ptr(), probs.data_ptr(), _is_bf16(frames), _is_bf16(probs),
         t, probs.shape[1], obj_offset, o, h, w, out_size,
-        yxhw.data_ptr(), yxhw.stride(0), yxhw.stride(1),
+        yxhw.data_ptr(), yxhw.stride(0), yxhw.stride(1), _is_bf16(yxhw),
         frame_load, plane_load, frame_cap, plane_cap,
         out.data_ptr(), _is_bf16(out),
         torch.cuda.current_stream(frames.device).cuda_stream,

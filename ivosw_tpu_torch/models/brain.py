@@ -8,6 +8,9 @@ per direction and is a different function, so the port loops one
 ``nn.LSTMCell(128, 128, bias=False)``; both directions step together as
 one batch of 2N rows. Masked (padded) steps pass the recurrent state
 through untouched and get Q = -inf.
+
+:func:`brain_q` is the differentiable forward (the Q-update's);
+:func:`brain_forward` is the same function without gradients (inference).
 """
 
 from __future__ import annotations
@@ -50,11 +53,10 @@ def init_brain(seed: int = 0) -> Brain:
     return brain.eval()
 
 
-@torch.no_grad()
-def brain_forward(
+def brain_q(
     brain: Brain, x: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Q-values per frame.
+    """Q-values per frame, differentiable with respect to the Brain.
 
     x: [N, T, 2] state (quality, #annotations); mask: optional [N, T] with 1
     for real frames, 0 for padding. Returns [N, T]; padded positions are
@@ -89,6 +91,14 @@ def brain_forward(
     if mask is not None:
         q = torch.where(mask > 0, q, torch.full_like(q, -math.inf))
     return q
+
+
+@torch.no_grad()
+def brain_forward(
+    brain: Brain, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """:func:`brain_q` without gradients (the inference entry)."""
+    return brain_q(brain, x, mask)
 
 
 def pad_to_bucket(t: int, buckets=(32, 64, 128, 256)) -> int:

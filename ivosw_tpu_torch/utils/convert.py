@@ -12,8 +12,9 @@ the port's modules, whose names follow the JAX trees. Layout changes only:
   order i, f, g, o unchanged.
 - GroupNorm ``scale``/``bias`` → ``weight``/``bias`` (TAPNet).
 
-:func:`assess_numpy_from_state_dict` is the inverse for AssessNet, so a
-net trained by the port can be held against the JAX package's trees.
+:func:`assess_numpy_from_state_dict` and :func:`brain_numpy_from_state_dict`
+are the inverses for AssessNet and the Brain, so a net trained by the port
+can be held against the JAX package's trees.
 
 The port reads no checkpoint format of the JAX package; reading those trees
 into numpy is the caller's business (the tests do it with the JAX
@@ -134,4 +135,20 @@ def tapnet_state_dict_from_numpy(params: Dict[str, Any]) -> StateDict:
                 walk(child, path + ".")
 
     walk(params, "")
+    return out
+
+
+def brain_numpy_from_state_dict(state_dict: StateDict) -> Dict[str, Any]:
+    """State dict of ``Brain`` → its params as nested dicts of float32 numpy
+    arrays in the JAX package's layout (the inverse of
+    :func:`brain_state_dict_from_numpy`)."""
+    x = lambda key: np.array(state_dict[key].detach().cpu().float().numpy())
+    out: Dict[str, Any] = {
+        name: {"kernel": np.ascontiguousarray(x(f"{name}.weight").T), "bias": x(f"{name}.bias")}
+        for name in ("enc_fc1", "enc_fc2", "dec_fc1", "dec_fc2")
+    }
+    out["lstm"] = {
+        "w_ih": np.ascontiguousarray(x("lstm.weight_ih").T),
+        "w_hh": np.ascontiguousarray(x("lstm.weight_hh").T),
+    }
     return out

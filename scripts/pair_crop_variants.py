@@ -3,8 +3,8 @@
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``:
 
-    python3 scripts/pair_crop_variants.py [--parent OLD.cu] [--variant kRows=4 ...]
-        [--source LABEL=OTHER.cu ...]
+    python3 scripts/pair_crop_variants.py [--parent OLD.cu] [--yxhw-parent OLD.cu]
+        [--variant kRows=4 ...] [--source LABEL=OTHER.cu ...]
 
 ``ivosw_tpu_torch/csrc/roi_crop_pairs.cu`` is copied once per variant with
 its ``constexpr`` knobs replaced (``kRows``, ``kThreads``, ``kStages``;
@@ -17,7 +17,9 @@ interface (a design tried and dropped, kept under the git-ignored
 ``build/``); ``--diagnostic`` likewise, but its result is not checked (a
 probe that skips part of the work, such as the copies). ``--parent`` names an earlier version whose C interface takes
 (ymin, ymax, xmin, xmax) boxes [T·O, 4]; its call converts the yxhw boxes
-with torch first, as that version's wrapper did.
+with torch first, as that version's wrapper did. ``--yxhw-parent`` names an
+earlier version whose C interface takes float32 yxhw boxes through their
+strides without a box-type flag (the interface before bfloat16 boxes).
 
 On ``chip_smoke.py``'s pair case (one launch of the two-stage round: T=32,
 O=3, 480×854, S=256, bf16 inputs and output) every build is checked against
@@ -82,6 +84,28 @@ def build(sources: dict) -> dict:
     return libs
 
 
+def yxhw_parent_call(torch, lib, frames, probs, yxhw, S, dtype, obj_offset, o):
+    """The interface before bfloat16 boxes: the wrapper's call without the
+    box-type flag (float32 boxes only)."""
+    from ivosw_tpu_torch.kernels import roi_crop as rc
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = rc._bind(lib, "ivosw_roi_crop_pairs",
+                  [p, p, i, i, i, i, i, i, i, i, i, p, ll, ll, i, i, i, i, p, i, p])
+    t, h, w, _ = frames.shape
+    fsize, psize = frames.element_size(), probs.element_size()
+    frame_cap, plane_cap, _ = rc.pair_stage_bytes(w, fsize, psize)
+    out = torch.empty((t * o, S, S, 4), dtype=dtype, device=frames.device)
+    err = fn(frames.data_ptr(), probs.data_ptr(), rc._is_bf16(frames), rc._is_bf16(probs), t,
+             probs.shape[1], obj_offset, o, h, w, S, yxhw.data_ptr(), yxhw.stride(0),
+             yxhw.stride(1), rc.span_load_bytes(frames.data_ptr(), h * w * 3 * fsize, fsize),
+             rc.span_load_bytes(probs.data_ptr(), h * w * psize, psize), frame_cap, plane_cap,
+             out.data_ptr(), rc._is_bf16(out),
+             torch.cuda.current_stream(frames.device).cuda_stream)
+    rc._check_launch(lib, err, "yxhw parent roi_crop_pairs")
+    return out
+
+
 def parent_call(torch, lib, frames, probs, yxhw, S, dtype, obj_offset, o):
     """The earlier interface: boxes converted by torch, then one launch."""
     from ivosw_tpu_torch.kernels.roi_crop import _bind, _check_launch, _is_bf16
@@ -102,6 +126,8 @@ def parent_call(torch, lib, frames, probs, yxhw, S, dtype, obj_offset, o):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an earlier roi_crop_pairs.cu (boxes as min/max)")
+    ap.add_argument("--yxhw-parent",
+                    help="an earlier roi_crop_pairs.cu (float32 yxhw boxes, no box-type flag)")
     ap.add_argument("--variant", action="append", default=[],
                     help="knob=value[,knob=value...] of csrc/roi_crop_pairs.cu")
     ap.add_argument("--source", action="append", default=[],
@@ -132,9 +158,10 @@ def main() -> int:
         label, path = spec.split("=", 1)
         with open(path) as f:
             sources[label] = f.read()
-    if args.parent:
-        with open(args.parent) as f:
-            sources["parent"] = f.read()
+    for label, path in (("parent", args.parent), ("yxhw_parent", args.yxhw_parent)):
+        if path:
+            with open(path) as f:
+                sources[label] = f.read()
     libs = build(sources)
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -144,9 +171,10 @@ def main() -> int:
     load = rc._load
 
     def call(label):
-        if label == "parent":
-            return lambda: parent_call(torch, libs["parent"], frames, probs, yxhw, cs.S,
-                                       torch.bfloat16, 1, cs.O)
+        if label in ("parent", "yxhw_parent"):
+            fn = parent_call if label == "parent" else yxhw_parent_call
+            return lambda: fn(torch, libs[label], frames, probs, yxhw, cs.S, torch.bfloat16, 1,
+                              cs.O)
 
         def run():
             rc._load = lambda source: libs[label] if source == rc._PAIRS_SOURCE else load(source)
@@ -165,7 +193,8 @@ def main() -> int:
         if not err <= rc.PAIR_BF16_ATOL and label not in unchecked:
             raise AssertionError(f"{label}: max abs err {err}")
 
-    order = (["parent"] if "parent" in libs else []) + [k for k in labels if k != "parent"]
+    parents = [k for k in ("parent", "yxhw_parent") if k in libs]
+    order = parents + [k for k in labels if k not in parents]
     order = order + order[::-1]
     results = {label: {"device_ms": [], "wall_ms": []} for label in labels}
     for label in order:

@@ -25,6 +25,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: the Brain's ops are small, and under the tier-1
+    run's six workers on eight cores OpenMP spinning over more threads
+    slows them many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _port_brain(params):
     brain = Brain()
     brain.load_state_dict(brain_state_dict_from_numpy(jax.tree.map(np.asarray, params)))

@@ -124,7 +124,7 @@ def _box_layout(yxhw, layout):
     """yxhw as given, as a column slice of a wider tensor (row stride 7),
     or as the transposed view of a [4, T·O] tensor (strides (1, T·O))."""
     if layout == "column_slice":
-        wide = torch.zeros((len(yxhw), 7), device=yxhw.device)
+        wide = torch.zeros((len(yxhw), 7), dtype=yxhw.dtype, device=yxhw.device)
         wide[:, 2:6] = yxhw
         return wide[:, 2:6]
     if layout == "transposed":
@@ -141,15 +141,17 @@ MIXES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("inputs", MIXES, ids=["f32", "bf16", "bf16_frames", "bf16_probs"])
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("boxes", ["contiguous", "column_slice", "transposed"])
+@pytest.mark.parametrize("boxes", ["contiguous", "column_slice", "transposed", "bf16",
+                                   "bf16_column_slice"])
 def test_pair_kernel_matches_plain(cuda, h, w, s, dtype, inputs, offset, boxes):
     """12 pairs: boxes of edge-case masks, then boxes of zero width, of
     negative height and width, right of the image, far outside it, across
     its bottom edge and around it (the span clamped at both ends). Odd
     sizes take narrow span loads, and so do frames and probs whose base is
     one value off a 16-byte boundary (``offset``); S=300 is past the
-    columns whose taps a thread keeps. Boxes read through their strides;
-    one launch per call."""
+    columns whose taps a thread keeps. Boxes read through their strides,
+    float32 or bfloat16 (edges rounded to bfloat16, as the plain version
+    computes them); one launch per call."""
     from ivosw_tpu_torch.kernels.roi_crop import (
         PAIR_BF16_ATOL,
         roi_crop_pairs,
@@ -161,9 +163,11 @@ def test_pair_kernel_matches_plain(cuda, h, w, s, dtype, inputs, offset, boxes):
                                 [h / 3, 3.0 * w, 20.0, w / 2]], device=cuda)
     frames = _off_base(frames.to(inputs[0]), offset)
     probs = _off_base(probs.to(inputs[1]), offset)
+    if boxes.startswith("bf16"):
+        yxhw = yxhw.to(torch.bfloat16)
     ref = roi_crop_pairs_reference(frames, probs, yxhw, s, dtype, obj_offset=1)
-    yxhw = _box_layout(yxhw, boxes)
-    assert yxhw.is_contiguous() == (boxes == "contiguous")
+    yxhw = _box_layout(yxhw, boxes.removeprefix("bf16_"))
+    assert yxhw.is_contiguous() == (boxes in ("contiguous", "bf16"))
     before = roi_crop_pairs.launches
     out = roi_crop_pairs(frames, probs, yxhw, s, dtype, obj_offset=1)
     torch.cuda.synchronize()
@@ -239,8 +243,9 @@ def test_pair_kernels_reject_bad_inputs(cuda):
     yxhw = torch.tensor([[8.0, 8.0, 10.0, 10.0]] * 4, device=cuda)
     with pytest.raises(TypeError):
         roi_crop_pairs(frames.double(), probs, yxhw, 8)
-    with pytest.raises(TypeError):
-        roi_crop_pairs(frames, probs, yxhw.double(), 8)
+    for box_dtype in (torch.float64, torch.float16):  # as on the CPU route
+        with pytest.raises(TypeError, match="float32 or bfloat16 yxhw"):
+            roi_crop_pairs(frames, probs, yxhw.to(box_dtype), 8)
     with pytest.raises(ValueError):
         roi_crop_pairs(frames, probs, yxhw[:3], 8)
     with pytest.raises(ValueError):
@@ -251,6 +256,7 @@ def test_pair_kernels_reject_bad_inputs(cuda):
         roi_crop_pairs(frames.requires_grad_(), probs, yxhw, 8)
     frames = frames.detach()
     assert torch.isfinite(roi_crop_pairs(frames, probs, yxhw, 8).float()).all()
+    assert torch.isfinite(roi_crop_pairs(frames, probs, yxhw.bfloat16(), 8).float()).all()
     assert torch.isfinite(roi_crop_pairs_premat(frames, probs, yxhw, 8).float()).all()
 
 

@@ -324,6 +324,74 @@ def test_pair_crops_match_pallas_and_einsum(h, w, s, dtype, crop):
     np.testing.assert_allclose(got, pallas, rtol=0, atol=atol + jax_gap)
 
 
+@pytest.mark.parametrize("h,w,s", [(48, 64, 64), (50, 70, 32), (192, 256, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_crop_takes_bf16_boxes(h, w, s, dtype):
+    """bfloat16 yxhw boxes on the CPU route: each edge computed in bfloat16,
+    then widened (``roi_pallas.py:320-321``), as the JAX package's Pallas
+    kernel (interpret mode) takes them, within the bounds of
+    test_pair_crops_match_pallas_and_einsum. The JAX einsum path rounds
+    each box's span hi − lo to bfloat16 as well (``ops/roi.py::
+    _interp_matrix`` on bfloat16 edges), which moves every sample of the
+    pair by up to that rounding: pairs whose spans are exact in bfloat16
+    agree with it within the same bound, the others within the bound plus
+    their two spans' rounding (frames and planes lie in [0, 1], so a
+    bilinear sample moves by at most its coordinate's shift). In float32
+    both JAX paths' own gap on these boxes (widened) is added, as there.
+    Pair 0's box has edges that bfloat16 rounds (y − h/2 = 33.625 → 33.5)."""
+    t, o = 2, 4
+    probs = edge_case_probs(t, o + 1, h, w, seed=w)
+    frames = frames_like(t, h, w)
+    boxes = _pair_boxes(t, o, h, w, seed=h)
+    boxes[0] = [40.0, 50.0, 12.75, 9.375]
+    yxhw = torch.from_numpy(boxes).to(torch.bfloat16)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    atol = F32_ATOL if dtype == "float32" else BF16_VS_JAX_ATOL
+
+    got = port_kernel.roi_crop_pairs(torch.from_numpy(frames), torch.from_numpy(probs), yxhw, s,
+                                     tdt, obj_offset=1).float().numpy()
+    jframes, jprobs = jnp.asarray(frames), jnp.asarray(probs[:, 1:])
+    jyxhw = jnp.asarray(yxhw.float().numpy()).astype(jnp.bfloat16)
+    pallas = np.asarray(jax_roi_pallas.roi_crop_pairs_pallas(jframes, jprobs, jyxhw, s, dtype=jdt,
+                                                             interpret=True), np.float32)
+    tf, tp = jax_roi_pallas.roi_crop_pairs_einsum(jframes, jprobs, jyxhw, s, dtype=jdt)
+    einsum = np.concatenate([np.asarray(tf, np.float32), np.asarray(tp, np.float32)], -1)
+    gap = 0.0
+    if dtype == "float32":
+        wide = jyxhw.astype(jnp.float32)
+        tf, tp = jax_roi_pallas.roi_crop_pairs_einsum(jframes, jprobs, wide, s, dtype=jdt)
+        gap = float(np.abs(np.asarray(jax_roi_pallas.roi_crop_pairs_pallas(
+            jframes, jprobs, wide, s, dtype=jdt, interpret=True))
+            - np.concatenate([np.asarray(tf), np.asarray(tp)], -1)).max())
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=atol + gap)
+
+    # the einsum path's span rounding, per pair
+    edges = [np.asarray(e, np.float32) for e in jax_roi.yxhw_to_minmax(jyxhw)]
+    span_shift = sum(
+        np.abs(np.asarray((hi - lo).astype(jnp.bfloat16), np.float32)
+               - (np.asarray(hi, np.float32) - np.asarray(lo, np.float32)))
+        for lo, hi in ((edges[0], edges[1]), (edges[2], edges[3])))
+    assert (span_shift == 0).any()
+    for i in range(t * o):
+        np.testing.assert_allclose(got[i], einsum[i], rtol=0,
+                                   atol=atol + gap + span_shift[i], err_msg=f"pair {i}")
+    # float32 boxes of the same values crop pair 0 elsewhere: its edges
+    # are not rounded to bfloat16 there
+    f32 = port_kernel.roi_crop_pairs(torch.from_numpy(frames), torch.from_numpy(probs),
+                                     yxhw.float(), s, tdt, obj_offset=1).float().numpy()
+    assert edges[0][0] == 33.5 and not np.array_equal(f32[0], got[0])
+
+
+@pytest.mark.parametrize("box_dtype", [torch.float16, torch.float64])
+def test_pair_crop_rejects_other_box_types(box_dtype):
+    """Boxes other than float32 and bfloat16 raise the same TypeError on
+    the CPU route as on the card's (tests/test_torch_kernels_cuda.py)."""
+    frames = torch.from_numpy(frames_like(1, 16, 16))
+    probs = torch.zeros((1, 2, 16, 16))
+    with pytest.raises(TypeError, match="float32 or bfloat16 yxhw"):
+        port_kernel.roi_crop_pairs(frames, probs, torch.ones((2, 4), dtype=box_dtype), 8)
+
+
 @pytest.mark.parametrize("h,w", [(49, 71), (48, 63), (50, 70)])
 @pytest.mark.parametrize("matrices", ["bilinear", "random"])
 def test_premat_mma_operands_keep_the_crop(h, w, matrices):
