@@ -73,10 +73,11 @@ with its own seconds:
    library's products and layout change (``torch.profiler``), and its time
    on the same crop with W zero-padded to 856, where every row is 16-byte
    aligned (``aligned_kernel_ms``);
-12. tapnet_small: one seeded TAPNet and one 3-round episode (48×64, T=8,
-   O=2, the same scribbles) on the card and on the host: probabilities
-   within a stated bound, labels equal but within that bound of a decision,
-   flipped pixels under a stated share;
+12. tapnet_small, matchnet_small, ipnet_small: for each backbone one seeded
+   net (``build_backbone``) and one 3-round episode (48×64, T=8, O=2, the
+   same scribbles) on the card and on the host: probabilities within a
+   stated bound, labels equal but within that bound of a decision, flipped
+   pixels under a stated share;
 13. tapnet_slice: the slice's main path, ``evaluate`` with ``vos=tapnet``,
    ``setting=wild``, ``method=ours``, ``assess_net.bf16_inputs=True`` on one
    480×854 demo clip (T=64, O=3, 3 rounds), seeded TAPNet, AssessNet
@@ -111,11 +112,20 @@ with its own seconds:
    fused-box kernel's launch count is zeroed just before and read just
    after and must cover every round; at least 14 Q-updates (3·5 − 1 per
    episode) must run on the card. Per round seg and rec ms, each episode's
-   update ms, peak memory.
+   update ms, peak memory;
+18. matchnet_slice, ipnet_slice: the main path with the other two
+   backbones, as tapnet_slice (``evaluate``, ``setting=wild``,
+   ``method=ours``, ``assess_net.bf16_inputs=True``, one 480×854 demo clip,
+   T=64, O=3, 3 rounds, seeded backbone from ``build_backbone``, AssessNet
+   and Brain): the fused-box launches, zeroed just before and read just
+   after, must equal rounds·ceil(T/32); ``seg_time_avg``,
+   ``rec_time_avg``, peak memory, and one more round split into encoder /
+   interaction / propagation (and MatchNet's similarity maps).
 
 Then it prints the kernel table (one JSON object; each kernel's launches
 are those of its path's run: the TAPNet slice for the fused-box kernel
-(the FakeVOS slice's and the agent rollout's under keys of their own), the
+(the FakeVOS slice's, the agent rollout's and the MatchNet and IPNet
+slices' under keys of their own), the
 training run for the crop kernel, the two-stage round for the pair kernel;
 the matrix crop is on no path; the fused-box, crop and pair kernels' rows
 also carry ``device_ms`` and ``bound_share``), the card's name and power limit as
@@ -163,17 +173,24 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 # size (bf16 rounding errors are relative; a seeded net's scores are not of
 # order one)
 SCORE_ATOL = 3e-2
-# tapnet_small: card (cuDNN bf16) and host (float32 sums of bf16 operands)
-# convolutions round a few values the other way, and the flips compound
-# through the encoder (tests/test_torch_tapnet.py holds the port against the
+# tapnet_small, matchnet_small, ipnet_small: card (cuDNN bf16) and host
+# (float32 sums of bf16 operands) convolutions round a few values the other
+# way, and the flips compound through the encoder (tests/test_torch_tapnet.py,
+# test_torch_matchnet.py and test_torch_ipnet.py hold the port against the
 # JAX package on the host to the same bound): probabilities within
-# TAP_PROB_ATOL; a label may differ only where the winning probability lies
-# within TAP_PROB_ATOL of 0.5 or of the runner-up, and on at most
-# TAP_LABEL_SHARE of the pixels (a seeded, untrained net leaves many
-# probabilities near 0.5)
-TAP_PROB_ATOL = 2.0**-5
-TAP_LABEL_SHARE = 0.05
-TAP_ROUNDS = 3
+# VOS_PROB_ATOL; a label may differ only where the winning probability lies
+# within VOS_PROB_ATOL of 0.5 or of the runner-up, and on at most
+# VOS_LABEL_SHARE of the pixels. A seeded, untrained net leaves most pixels
+# that near a decision (on the host: 82-95 % for TAPNet and IPNet); seeded
+# MatchNet's heads barely tell the objects apart, leaving the two objects
+# within VOS_PROB_ATOL of each other on 99.99-100 % of the pixels, where a
+# flip is a coin toss: its bound is half of them
+VOS_PROB_ATOL = 2.0**-5
+VOS_LABEL_SHARE = {"tapnet": 0.05, "matchnet": 0.5, "ipnet": 0.05}
+VOS_ROUNDS = 3
+# the modules of one backbone round timed apart in the slice phases:
+# (interaction, propagation) submodules of the net
+VOS_SPLIT = {"matchnet": ("int_head", "prop_head"), "ipnet": ("interaction", "propagation")}
 # torch.profiler's tracer (kineto) drops a few device records per window as
 # out of its capture window (3-10 of ~2400 in a QA round, by its own log),
 # mostly the window's first: once both crop launches of a one-round TAPNet
@@ -1099,25 +1116,29 @@ def decision_margin(all_p):
     return margin
 
 
-def phase_tapnet_small(torch, dev):
-    """One seeded TAPNet episode on the card and on the host, same scribbles."""
+def phase_vos_small(torch, dev, vos):
+    """One seeded backbone episode on the card and on the host, same
+    scribbles (``vos``: tapnet, matchnet or ipnet, built by
+    ``build_backbone``)."""
     import numpy as np
 
+    from ivosw_tpu_torch.core.config import Config
     from ivosw_tpu_torch.data.registry import SequenceRegistry
     from ivosw_tpu_torch.data.scribbles import merge_scribbles
+    from ivosw_tpu_torch.eval.backbones import build_backbone
     from ivosw_tpu_torch.interact.robot import ScribbleRobot
-    from ivosw_tpu_torch.models.vos.tapnet import TAPNetAdapter
 
     tic = time.perf_counter()
     reg = SequenceRegistry.synthetic(["s"], num_frames=8, image_size=(64, 48), num_objects=2,
                                      seed=SEED)
     frames, gt = reg.load_images("s"), reg.load_annotations("s")
-    card = TAPNetAdapter.create(seed=SEED, device=dev)
-    host = TAPNetAdapter.create(seed=SEED, device="cpu")
+    with tempfile.TemporaryDirectory() as empty:  # no checkpoint: seeded weights
+        cfg = Config(vos=vos, seed=SEED, ckpt_dir=empty)
+        card, host = build_backbone(cfg, reg, dev), build_backbone(cfg, reg, "cpu")
     s_card, s_host = card.begin_sequence(frames, 2), host.begin_sequence(frames, 2)
     robot = ScribbleRobot(seed=SEED)
     masks, scribbles, report = np.zeros_like(gt), None, []
-    for n, frame in enumerate((3, 7, 0)[:TAP_ROUNDS], start=1):
+    for n, frame in enumerate((3, 7, 0)[:VOS_ROUNDS], start=1):
         new = robot.interact("s", masks, gt, 2, frame=frame)
         scribbles = new if scribbles is None else merge_scribbles(scribbles, new)
         labels_c, p_c, s_card = card.segment(s_card, scribbles, frame, n)
@@ -1126,16 +1147,19 @@ def phase_tapnet_small(torch, dev):
         p_c = p_c.float().cpu()
         prob_err = float((p_c - p_h.float()).abs().max())
         flipped = torch.from_numpy(labels_c != labels_h)
-        margin = float(decision_margin(p_h)[flipped].max()) if bool(flipped.any()) else 0.0
+        margins = decision_margin(p_h)
+        margin = float(margins[flipped].max()) if bool(flipped.any()) else 0.0
         share = float(flipped.float().mean())
         report.append({"round": n, "prob_max_abs_diff": prob_err, "labels_flipped": int(flipped.sum()),
-                       "flipped_share": share, "flipped_max_margin": margin})
-        if not (prob_err <= TAP_PROB_ATOL and margin <= TAP_PROB_ATOL and share <= TAP_LABEL_SHARE):
-            raise AssertionError(f"TAPNet card vs host, round {n}: {report[-1]} (bounds "
-                                 f"{TAP_PROB_ATOL}, share {TAP_LABEL_SHARE})")
+                       "flipped_share": share, "flipped_max_margin": margin,
+                       "near_decision_share": float((margins <= VOS_PROB_ATOL).float().mean())})
+        if not (prob_err <= VOS_PROB_ATOL and margin <= VOS_PROB_ATOL
+                and share <= VOS_LABEL_SHARE[vos]):
+            raise AssertionError(f"{vos} card vs host, round {n}: {report[-1]} (bounds "
+                                 f"{VOS_PROB_ATOL}, share {VOS_LABEL_SHARE[vos]})")
         masks = labels_h
-    log_phase("tapnet_small", tic, rounds=report, prob_bound=TAP_PROB_ATOL,
-              label_share_bound=TAP_LABEL_SHARE)
+    log_phase(f"{vos}_small", tic, rounds=report, prob_bound=VOS_PROB_ATOL,
+              label_share_bound=VOS_LABEL_SHARE[vos])
 
 
 def timed_calls(torch, module, store):
@@ -1156,30 +1180,35 @@ def timed_calls(torch, module, store):
     return lambda: setattr(module, "forward", forward)
 
 
-def phase_tapnet_slice(torch, dev, kinfo):
-    """The slice's main path with TAPNet, bf16_inputs on."""
+def run_backbone_slice(torch, dev, vos):
+    """``evaluate`` with ``vos`` (seeded, from ``build_backbone``),
+    ``setting=wild``, ``method=ours``, ``bf16_inputs`` on one 480×854 demo
+    clip, the fused-box launches zeroed just before and read just after;
+    raises unless they equal rounds·ceil(T/32) and the outputs are well
+    formed. Returns what the slice phases report and reuse."""
     import numpy as np
 
     from ivosw_tpu_torch.core.config import Config
     from ivosw_tpu_torch.data.demo import DemoSpec, demo_training_registry
-    from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK, predict_clip_quality
+    from ivosw_tpu_torch.eval.backbones import build_backbone
+    from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK
     from ivosw_tpu_torch.kernels.roi_crop import roi_crop_pairs_fusedbox
-    from ivosw_tpu_torch.models.vos.tapnet import TAPNetAdapter
 
     tic = time.perf_counter()
     spec = DemoSpec(h=H, w=W, num_frames=T_CLIP, num_objects=O, blob=BLOB)
     registry = demo_training_registry(n_clips=1, seed=SEED, spec=spec)
-    cfg = Config(phase="eval", setting="wild", method="ours", vos="tapnet",
-                 dataset="demo", seed=SEED)
-    cfg.assess_net.bf16_inputs = True
+    with tempfile.TemporaryDirectory() as empty:  # no checkpoint: seeded weights
+        cfg = Config(phase="eval", setting="wild", method="ours", vos=vos, dataset="demo",
+                     seed=SEED, ckpt_dir=empty)
+        cfg.assess_net.bf16_inputs = True
+        adapter = build_backbone(cfg, registry, dev)
     assess_net, agent = make_models(torch, dev, cfg, SEED)
-    adapter = TAPNetAdapter.create(seed=SEED, qa_dtype=torch.bfloat16, device=dev)
     last = {}
     segment = adapter.segment
 
     def keep_last(*args, **kwargs):
         out = segment(*args, **kwargs)
-        last["all_p"], last["state"] = out[1], out[2]
+        last["all_p"] = out[1]
         return out
 
     adapter.segment = keep_last
@@ -1188,7 +1217,7 @@ def phase_tapnet_slice(torch, dev, kinfo):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     roi_crop_pairs_fusedbox.launches = 0
-    summary, picks, qualities = run_eval(torch, dev, registry, assess_net, agent, TAP_ROUNDS,
+    summary, picks, qualities = run_eval(torch, dev, registry, assess_net, agent, VOS_ROUNDS,
                                          "train", cfg, adapter=adapter)
     launches = roi_crop_pairs_fusedbox.launches
     peak_bytes = torch.cuda.max_memory_allocated(dev)
@@ -1209,9 +1238,25 @@ def phase_tapnet_slice(torch, dev, kinfo):
             or tuple(all_p.shape) != (T_CLIP, O + 1, H, W)
             or not bool(torch.isfinite(all_p.float()).all())):
         raise AssertionError(f"all_P {all_p.dtype} {all_p.device} {tuple(all_p.shape)}")
+    return {
+        "tic": tic, "registry": registry, "adapter": adapter, "assess_net": assess_net,
+        "agent": agent, "all_p": all_p, "peak_memory_bytes": peak_bytes,
+        "report": {"setup_seconds": setup_s, "rounds": rounds, "launches": launches,
+                   "expected_launches": expected, "picks": picks, "curve": curve,
+                   "auc": summary["auc"], "rec_time_avg_s": summary["timing"]["rec_time_avg"],
+                   "seg_time_avg_s": summary["timing"]["seg_time_avg"]},
+    }
 
-    # the segmentation split of one more round: encoder (begin_sequence),
-    # A-Net and the T-Net steps, each call synchronised
+
+def split_round(torch, adapter, registry, modules, functions=()):
+    """One more round of ``adapter`` on the slice's clip, each call of the
+    named submodules of ``adapter.net`` and of the named (module, function)
+    pairs synchronised and timed apart → (encoder ms, {name: seconds per
+    call}, segment ms)."""
+    import numpy as np
+
+    from ivosw_tpu_torch.interact.robot import ScribbleRobot
+
     name = registry.subset("train")[0]
     frames_host = registry.load_images(name)
     torch.cuda.synchronize()
@@ -1219,23 +1264,56 @@ def phase_tapnet_slice(torch, dev, kinfo):
     state = adapter.begin_sequence(frames_host, O)
     torch.cuda.synchronize()
     encode_ms = (time.perf_counter() - t0) * 1e3
-    anet_s, tnet_s = [], []
-    undo = [timed_calls(torch, adapter.net.anet, anet_s), timed_calls(torch, adapter.net.tnet, tnet_s)]
-    gt = registry.load_annotations(name)
-    from ivosw_tpu_torch.interact.robot import ScribbleRobot
+    calls = {m: [] for m in list(modules) + [f for _, f in functions]}
+    undo = [timed_calls(torch, getattr(adapter.net, m), calls[m]) for m in modules]
+    for module, fn in functions:
+        original = getattr(module, fn)
 
+        def timed(*args, _original=original, _store=calls[fn], **kwargs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = _original(*args, **kwargs)
+            torch.cuda.synchronize()
+            _store.append(time.perf_counter() - t1)
+            return out
+
+        setattr(module, fn, timed)
+        undo.append(lambda module=module, fn=fn, original=original:
+                    setattr(module, fn, original))
+    gt = registry.load_annotations(name)
     scribbles = ScribbleRobot(seed=SEED).interact(name, np.zeros_like(gt), gt, O, frame=0)
-    t0 = time.perf_counter()
-    _, all_p_round, state = adapter.segment(state, scribbles, 0, 1)
-    torch.cuda.synchronize()
-    segment_ms = (time.perf_counter() - t0) * 1e3
-    for u in undo:
-        u()
+    try:
+        t0 = time.perf_counter()
+        adapter.segment(state, scribbles, 0, 1)
+        torch.cuda.synchronize()
+        segment_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for u in undo:
+            u()
+    return encode_ms, calls, segment_ms
+
+
+def phase_tapnet_slice(torch, dev, kinfo):
+    """The slice's main path with TAPNet, bf16_inputs on."""
+    import numpy as np
+
+    from ivosw_tpu_torch.interact.recommend import predict_clip_quality
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop_pairs_fusedbox
+
+    run = run_backbone_slice(torch, dev, "tapnet")
+    tic, registry, all_p = run["tic"], run["registry"], run["all_p"]
+    assess_net, agent = run["assess_net"], run["agent"]
+
+    # the segmentation split of one more round: encoder (begin_sequence),
+    # A-Net and the T-Net steps, each call synchronised
+    encode_ms, calls, segment_ms = split_round(torch, run["adapter"], registry, ("anet", "tnet"))
+    anet_s, tnet_s = calls["anet"], calls["tnet"]
     split = {"encoder_ms": encode_ms, "anet_ms": sum(anet_s) * 1e3,
              "tnet_steps": len(tnet_s), "tnet_ms": sum(tnet_s) * 1e3,
              "segment_ms": segment_ms,
              "segment_rest_ms": segment_ms - (sum(anet_s) + sum(tnet_s)) * 1e3}
 
+    frames_host = registry.load_images(registry.subset("train")[0])
     # QA time of one round on TAPNet's own probabilities (already on the card)
     frames = torch.as_tensor(frames_host).to(torch.bfloat16).to(dev)
     qa_ms = []
@@ -1254,15 +1332,38 @@ def phase_tapnet_slice(torch, dev, kinfo):
         raise AssertionError(f"host-to-device copies of {h2d_ms} ms in a TAPNet QA round")
 
     log_phase(
-        "tapnet_slice", tic, setup_seconds=setup_s, rounds=rounds, launches=launches,
-        expected_launches=expected, picks=picks, curve=curve, auc=summary["auc"],
-        rec_time_avg_s=summary["timing"]["rec_time_avg"],
-        seg_time_avg_s=summary["timing"]["seg_time_avg"],
-        qa_ms_per_round=qa_ms, peak_memory_bytes=peak_bytes, segment_split=split,
+        "tapnet_slice", tic, **run["report"], qa_ms_per_round=qa_ms,
+        peak_memory_bytes=run["peak_memory_bytes"], segment_split=split,
         card=kinfo["name"], power_limit=kinfo["power_limit"],
     )
     print(json.dumps({"phase": "tapnet_qa_profile", "h2d_copy_ms": h2d_ms, **profile}), flush=True)
-    return launches, frames, all_p, assess_net, agent
+    return run["report"]["launches"], frames, all_p, assess_net, agent
+
+
+def phase_vos_slice(torch, dev, kinfo, vos):
+    """The slice's main path with MatchNet or IPNet, bf16_inputs on."""
+    from ivosw_tpu_torch.models.vos import matchnet
+
+    run = run_backbone_slice(torch, dev, vos)
+    # the segmentation split of one more round: encoder (begin_sequence),
+    # interaction and propagation, MatchNet's similarity maps
+    inter, prop = VOS_SPLIT[vos]
+    functions = [(matchnet, "object_sim_maps")] if vos == "matchnet" else []
+    encode_ms, calls, segment_ms = split_round(torch, run["adapter"], run["registry"],
+                                               (inter, prop), functions)
+    sim_s = calls.get("object_sim_maps", [])
+    timed_ms = (sum(calls[inter]) + sum(calls[prop]) + sum(sim_s)) * 1e3
+    split = {"encoder_ms": encode_ms, "interaction_ms": sum(calls[inter]) * 1e3,
+             "propagation_steps": len(calls[prop]), "propagation_ms": sum(calls[prop]) * 1e3,
+             "similarity_calls": len(sim_s), "similarity_ms": sum(sim_s) * 1e3,
+             "segment_ms": segment_ms, "segment_rest_ms": segment_ms - timed_ms}
+    if len(calls[prop]) != T_CLIP - 1 or (vos == "matchnet") != (len(sim_s) == 2 * (T_CLIP - 1)):
+        raise AssertionError(f"{vos} split round: {split}")
+    log_phase(
+        f"{vos}_slice", run["tic"], **run["report"], peak_memory_bytes=run["peak_memory_bytes"],
+        segment_split=split, card=kinfo["name"], power_limit=kinfo["power_limit"],
+    )
+    return run["report"]["launches"]
 
 
 def phase_two_stage(torch, dev, frames, all_p, assess_net, agent):
@@ -1622,12 +1723,14 @@ def main() -> int:
     stats = phase_kernel(torch, dev, kinfo, FRAME_CHUNK, torch.bfloat16)
     pair_stats = phase_kernel_roi_crop_pairs(torch, dev, kinfo, FRAME_CHUNK)
     premat_stats = phase_kernel_roi_crop_pairs_premat(torch, dev, kinfo, FRAME_CHUNK)
-    phase_tapnet_small(torch, dev)
+    for vos in ("tapnet", "matchnet", "ipnet"):
+        phase_vos_small(torch, dev, vos)
     launches, frames, all_p, assess_net, agent = phase_tapnet_slice(torch, dev, kinfo)
     pair_launches = phase_two_stage(torch, dev, frames, all_p, assess_net, agent)
     phase_agent_update(torch, dev, kinfo)
     phase_agent_pipeline(torch, dev)
     agent_launches = phase_agent_wild(torch, dev, kinfo)
+    vos_launches = {vos: phase_vos_slice(torch, dev, kinfo, vos) for vos in VOS_SPLIT}
 
     def row(name, source, replaces, launches, st, bound_by, path):
         return {
@@ -1642,6 +1745,8 @@ def main() -> int:
                 "tapnet_slice (bf16 inputs)")
     fused["float32_inputs"] = {"launches": fake_launches, "path": "slice", **f32_stats}
     fused["agent_wild"] = {"launches": agent_launches, "path": "agent_wild (bf16 inputs)"}
+    for vos, n in vos_launches.items():
+        fused[f"{vos}_slice"] = {"launches": n, "path": f"{vos}_slice (bf16 inputs)"}
     kernels = [
         fused,
         row("roi_crop", "roi_crop.cu", 67, crop_launches, crop_stats, "bytes", "train"),

@@ -11,8 +11,7 @@ Counterpart of ``ivosw_tpu/data/scribbles.py`` without cv2. Scribble dicts:
 Rasterisation draws each path as connected 8-connected line segments
 (:func:`draw_line`, the pixels ``cv2.polylines(thickness=1)`` sets) and
 dilates per-object masks with a square max filter (``cv2.dilate``'s
-result; the out-of-frame border adds nothing). ``rough_roi_filter`` comes
-with the matchnet slice.
+result; the out-of-frame border adds nothing).
 """
 
 from __future__ import annotations
@@ -115,6 +114,29 @@ def scribbles2mask(
             for k in range(len(xs) - 1):
                 draw_line(out[fi], int(xs[k]), int(ys[k]), int(xs[k + 1]), int(ys[k + 1]), obj)
     return out[only_frame] if only_frame is not None else out
+
+
+def rough_roi_filter(
+    scribble_label: np.ndarray, dist: int = 20, background_value: int = 0
+) -> np.ndarray:
+    """Keep scribble labels only inside the ±dist box of all scribbles.
+
+    MANet's rough_ROI (reference utils/utils_manet.py:22-39): pixels outside
+    the padded bounding box of every scribbled pixel (label ≠ −1) become
+    ``background_value``. The box's end rows and columns are
+    ``min(max + dist, size − 1)``, exclusive, as in the reference.
+    scribble_label: [H, W] with −1 marking no scribble."""
+    label = np.asarray(scribble_label)
+    h, w = label.shape
+    ys, xs = np.nonzero(label != -1)
+    if len(ys) == 0:
+        return label.copy()
+    keep = np.zeros_like(label, dtype=bool)
+    keep[
+        max(int(ys.min()) - dist, 0) : min(int(ys.max()) + dist, h - 1),
+        max(int(xs.min()) - dist, 0) : min(int(xs.max()) + dist, w - 1),
+    ] = True
+    return np.where(keep, label, background_value)
 
 
 def scribble_masks_per_object(

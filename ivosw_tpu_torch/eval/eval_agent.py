@@ -10,9 +10,10 @@ CLI: ``python -m ivosw_tpu_torch.eval.eval_agent [key=value ...] [--force]
 [--cpu]``, e.g. ``dataset=demo vos=fake setting=wild method=ours`` or
 ``dataset=demo vos=tapnet setting=wild method=ours
 assess_net.bf16_inputs=true``; it runs on CUDA unless ``--cpu`` is given. Weights: ``agent.pt``,
-``assess_net.pt`` and ``tapnet.pt`` in ``ckpt_dir`` (torch state dicts of
-``Brain``, of an unfolded ``AssessNet`` and of ``TAPNet``) when present,
-else seeded random weights. The
+``assess_net.pt`` and the backbone's ``tapnet.pt``, ``matchnet.pt`` or
+``ipnet.pt`` in ``ckpt_dir`` (torch state dicts of ``Brain``, of an
+unfolded ``AssessNet`` and of ``TAPNet``, ``MatchNet`` or ``IPNet``) when
+present, else seeded random weights. The
 data-parallel sweep (``evaluate_dp``) comes with the parallelism slice.
 """
 

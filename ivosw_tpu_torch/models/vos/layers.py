@@ -29,8 +29,10 @@ Numerics kept from flax and ``jax.image``:
 
 from __future__ import annotations
 
+import math
+import os
 from functools import lru_cache
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -209,6 +211,51 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     if rows_first < cols_first:
         return cols(rows(x))
     return rows(cols(x))
+
+
+def flax_style_init(net: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """Seeded flax-style initial weights of a backbone (CPU float32 state
+    dict): convs LeCun-normal (truncated at ±2σ, σ = √(1/fan_in)/0.8796, as
+    ``flax.linen.initializers.lecun_normal``), conv biases 0, GroupNorm
+    scale 1 and bias 0; drawn in module order from
+    ``torch.Generator().manual_seed(seed)``. The numbers differ from the
+    JAX package's draw from the same seed."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in net.modules():
+            if isinstance(module, Conv):
+                fan_in = module.in_channels * module.kernel_size[0] * module.kernel_size[1]
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, GroupNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+    return net.state_dict()
+
+
+def backbone_weights(net: nn.Module, ckpt_dir, filename: str, seed: int) -> nn.Module:
+    """``net`` with the state dict ``{ckpt_dir}/{filename}`` when that file
+    exists, else with :func:`flax_style_init` ``(net, seed)``."""
+    path = os.path.join(ckpt_dir, filename) if ckpt_dir else None
+    if path and os.path.exists(path):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    else:
+        state = flax_style_init(net, seed)
+    net.load_state_dict(state)
+    return net
+
+
+def encode_clip(encoder: nn.Module, frames, chunk: int, device):
+    """frames [T, H, W, 3] (host array or tensor) → (float32 NCHW frames on
+    ``device``, (r4, r3, r2) of every frame, encoded ``chunk`` frames at a
+    time). The JAX package zero-pads the last chunk; GroupNorm works per
+    sample, so encoding the remainder alone gives the same features."""
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=device)
+    frames = frames.permute(0, 3, 1, 2).contiguous()
+    parts = [encoder(frames[s:s + chunk]) for s in range(0, frames.shape[0], chunk)]
+    return frames, tuple(torch.cat([p[i] for p in parts]) for i in range(3))
 
 
 def resize_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -25,8 +25,6 @@ layout change (:func:`ivosw_tpu_torch.utils.convert.tapnet_state_dict_from_numpy
 
 from __future__ import annotations
 
-import math
-import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -36,12 +34,13 @@ from torch import nn
 
 from ivosw_tpu_torch.data.scribbles import scribble_masks_per_object
 from ivosw_tpu_torch.device import resolve_device
-from ivosw_tpu_torch.models.vos.layers import Conv
 from ivosw_tpu_torch.models.vos.layers import (
     ConvBlock,
-    GroupNorm,
     VOSDecoder,
     VOSEncoder,
+    backbone_weights,
+    encode_clip,
+    flax_style_init,
     global_match_readout,
     labels_and_probs,
     resize_bilinear,
@@ -116,26 +115,9 @@ class TAPNet(nn.Module):
 
 
 def init_tapnet_params(seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Seeded flax-style initial weights (CPU float32 state dict): convs
-    LeCun-normal (truncated at ±2σ, σ = √(1/fan_in)/0.8796, as
-    ``flax.linen.initializers.lecun_normal``), conv biases 0, GroupNorm
-    scale 1 and bias 0; drawn in module order from
-    ``torch.Generator().manual_seed(seed)``. The numbers differ from the
-    JAX package's draw from the same seed."""
-    net = TAPNet()
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for module in net.modules():
-            if isinstance(module, Conv):
-                fan_in = module.in_channels * module.kernel_size[0] * module.kernel_size[1]
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
-                if module.bias is not None:
-                    module.bias.zero_()
-            elif isinstance(module, GroupNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
-    return net.state_dict()
+    """Seeded initial weights of :class:`TAPNet`
+    (:func:`~ivosw_tpu_torch.models.vos.layers.flax_style_init`)."""
+    return flax_style_init(TAPNet(), seed)
 
 
 # ----------------------------------------------------------------- state --
@@ -216,13 +198,8 @@ class TAPNetAdapter:
                qa_dtype=torch.float32, device=None):
         """``{ckpt_dir}/tapnet.pt`` (a state dict of :class:`TAPNet`) when it
         exists, else :func:`init_tapnet_params` ``(seed)``."""
-        net = TAPNet()
-        path = os.path.join(ckpt_dir, TAPNET_CKPT) if ckpt_dir else None
-        if path and os.path.exists(path):
-            state = torch.load(path, map_location="cpu", weights_only=True)
-        else:
-            state = init_tapnet_params(seed)
-        net.load_state_dict(state)
+        device = resolve_device(device)  # raises before building without a GPU
+        net = backbone_weights(TAPNet(), ckpt_dir, TAPNET_CKPT, seed)
         return cls(net, qa_dtype=qa_dtype, device=device)
 
     # -------------------------------------------------------------------- #
@@ -232,12 +209,8 @@ class TAPNetAdapter:
         device): one upload, features of every frame in ``encode_chunk``
         batches."""
         dev = self.device
-        frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
-        t, h, w = frames.shape[:3]
-        frames = frames.permute(0, 3, 1, 2).contiguous()
-        parts = [self.net.frame_encoder(frames[s:s + self.encode_chunk])
-                 for s in range(0, t, self.encode_chunk)]
-        feats = tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+        frames, feats = encode_clip(self.net.frame_encoder, frames, self.encode_chunk, dev)
+        t, h, w = frames.shape[0], frames.shape[2], frames.shape[3]
         c, p = feats[0].shape[1], feats[0].shape[2] * feats[0].shape[3]
         return _TAPState(
             feats=feats,

@@ -10,7 +10,7 @@ the port's modules, whose names follow the JAX trees. Layout changes only:
   → ``weight``/``bias``/``running_mean``/``running_var``.
 - LSTM ``w_ih``/``w_hh`` [H, 4H] → ``weight_ih``/``weight_hh`` [4H, H], gate
   order i, f, g, o unchanged.
-- GroupNorm ``scale``/``bias`` → ``weight``/``bias`` (TAPNet).
+- GroupNorm ``scale``/``bias`` → ``weight``/``bias`` (the VOS backbones).
 
 :func:`assess_numpy_from_state_dict` and :func:`brain_numpy_from_state_dict`
 are the inverses for AssessNet and the Brain, so a net trained by the port
@@ -110,11 +110,11 @@ def brain_state_dict_from_numpy(params: Dict[str, Any]) -> StateDict:
     return out
 
 
-def tapnet_state_dict_from_numpy(params: Dict[str, Any]) -> StateDict:
-    """TAPNet params (the flax tree ``frame_encoder``/``anet``/``tnet``, with
-    or without a top-level ``"params"``) → state dict of
-    :class:`ivosw_tpu_torch.models.vos.tapnet.TAPNet`: conv kernels HWIO →
-    OIHW, GroupNorm ``scale`` → ``weight``, biases as they are."""
+def _backbone_state_dict(params: Dict[str, Any]) -> StateDict:
+    """A VOS backbone's flax params (with or without a top-level
+    ``"params"``) → the state dict of the port's module, whose submodules
+    carry the flax tree's names: conv kernels HWIO → OIHW, GroupNorm
+    ``scale`` → ``weight``, biases as they are."""
     params = params.get("params", params)
     out: StateDict = {}
 
@@ -136,6 +136,25 @@ def tapnet_state_dict_from_numpy(params: Dict[str, Any]) -> StateDict:
 
     walk(params, "")
     return out
+
+
+def tapnet_state_dict_from_numpy(params: Dict[str, Any]) -> StateDict:
+    """TAPNet params (the flax tree ``frame_encoder``/``anet``/``tnet``) →
+    state dict of :class:`ivosw_tpu_torch.models.vos.tapnet.TAPNet`."""
+    return _backbone_state_dict(params)
+
+
+def matchnet_state_dict_from_numpy(params: Dict[str, Any]) -> StateDict:
+    """MatchNet params (the flax tree ``emb_enc``/``int_head``/``prop_head``)
+    → state dict of :class:`ivosw_tpu_torch.models.vos.matchnet.MatchNet`."""
+    return _backbone_state_dict(params)
+
+
+def ipnet_state_dict_from_numpy(params: Dict[str, Any]) -> StateDict:
+    """IPNet params (the flax tree ``frame_enc``/``interaction``/
+    ``propagation``) → state dict of
+    :class:`ivosw_tpu_torch.models.vos.ipnet.IPNet`."""
+    return _backbone_state_dict(params)
 
 
 def brain_numpy_from_state_dict(state_dict: StateDict) -> Dict[str, Any]:

@@ -16,6 +16,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ivosw_tpu_torch")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The backbones' seeded inits are large elementwise ops: under the
+    tier-1 run's six workers more intra-op threads only spin."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _port_modules():
     return sorted(
         m.name for m in pkgutil.walk_packages([PORT], prefix="ivosw_tpu_torch.")
@@ -149,20 +159,30 @@ def test_kernel_wrapper_refuses_other_devices():
 
 
 def test_unported_backbones_name_their_slice(tmp_path):
-    """matchnet/ipnet name their slice; tapnet builds, on the CPU when
-    asked, with its prob maps in bf16 under assess_net.bf16_inputs."""
+    """Every backbone of the JAX package builds: tapnet, matchnet and ipnet
+    on the CPU when asked, with their prob maps in bf16 under
+    assess_net.bf16_inputs; without a GPU and without device="cpu" they
+    raise rather than fall back to the CPU. An unknown name raises
+    NotImplementedError naming it."""
     from ivosw_tpu_torch.core.config import Config
     from ivosw_tpu_torch.eval.backbones import build_backbone
+    from ivosw_tpu_torch.models.vos.ipnet import IPNetAdapter
+    from ivosw_tpu_torch.models.vos.matchnet import MatchNetAdapter
     from ivosw_tpu_torch.models.vos.tapnet import TAPNetAdapter
 
-    for name, slice_name in (("matchnet", "matchnet"), ("ipnet", "ipnet")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            build_backbone(Config(vos=name), None)
-    for bf16 in (False, True):
-        cfg = Config(vos="tapnet", ckpt_dir=str(tmp_path))
-        cfg.assess_net.bf16_inputs = bf16
-        adapter = build_backbone(cfg, None, "cpu")
-        assert isinstance(adapter, TAPNetAdapter) and adapter.device == torch.device("cpu")
-        assert adapter.qa_dtype == (torch.bfloat16 if bf16 else torch.float32)
-        assert next(adapter.net.parameters()).device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="nonet"):
+        build_backbone(Config(vos="nonet"), None, "cpu")
+    for name, cls in (("tapnet", TAPNetAdapter), ("matchnet", MatchNetAdapter),
+                      ("ipnet", IPNetAdapter)):
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build_backbone(Config(vos=name), None)
+        for bf16 in (False, True):
+            cfg = Config(vos=name, ckpt_dir=str(tmp_path))
+            cfg.assess_net.bf16_inputs = bf16
+            adapter = build_backbone(cfg, None, "cpu")
+            assert isinstance(adapter, cls) and adapter.name == name
+            assert adapter.device == torch.device("cpu")
+            assert adapter.qa_dtype == (torch.bfloat16 if bf16 else torch.float32)
+            assert next(adapter.net.parameters()).device.type == "cpu"
     assert ivosw_tpu_torch.__version__

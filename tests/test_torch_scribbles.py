@@ -81,3 +81,25 @@ def test_draw_line_matches_cv2_on_every_octant():
         ours = np.full((h, w), -1, np.int32)
         T.draw_line(ours, x0, y0, x1, y1, 2)
         np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("dist", [0, 3, 20])
+def test_rough_roi_filter_matches_jax(dist):
+    """MANet's rough_ROI on seeded scribble labels (−1 where unannotated),
+    boxes away from and against the border, and a label without scribbles."""
+    rng = np.random.default_rng(dist)
+    for k in range(30):
+        h, w = int(rng.integers(5, 60)), int(rng.integers(5, 60))
+        label = np.full((h, w), -1, dtype=np.int32)
+        if k % 6 != 0:  # every sixth label holds no scribble
+            rows = rng.integers(0, h, int(rng.integers(1, 6)))
+            cols = rng.integers(0, w, len(rows))
+            label[rows, cols] = rng.integers(0, 3, len(rows))
+        background = int(rng.integers(-1, 2))
+        ours = T.rough_roi_filter(label, dist=dist, background_value=background)
+        ref = J.rough_roi_filter(label, dist=dist, background_value=background)
+        assert ours.dtype == ref.dtype
+        np.testing.assert_array_equal(ours, ref)
+        if k % 6 == 0:
+            np.testing.assert_array_equal(ours, label)
+            assert ours is not label
