@@ -121,6 +121,24 @@ with its own seconds:
    after, must equal rounds·ceil(T/32); ``seg_time_avg``,
    ``rec_time_avg``, peak memory, and one more round split into encoder /
    interaction / propagation (and MatchNet's similarity maps).
+19. vos_train_small_tapnet, _matchnet, _ipnet: one ``vos_train_step`` of
+   each backbone (``train/train_vos.py``) at 48×64 (K=3, O=2, a seeded
+   round-2 window, lr 3e-4) on the card and on the host from the same
+   seeded weights: the loss, each parameter's gradient (relative L2) and
+   the parameters after the Adam step within the CPU tests' bounds against
+   the JAX package;
+20. vos_train_tapnet, _matchnet, _ipnet: ``train_vos.run`` of each
+   backbone on the card at the HD demo tier (192×256, up to 3 objects,
+   ``demo_training_registry(seed=1)``, 4 clips, window 5, lr 3e-4,
+   ``round2_prob`` 0.5, 30 steps from the seeded init): median step ms
+   (the step up to the loss's read-back), host window-building and upload
+   ms, peak memory, the crop kernels' launches during the run (none: the
+   trainer runs no kernel of the port), the loss on a round-2 window of a
+   fifth, held-out clip before and after (it must fall), 3 steps profiled
+   (kernels per step, compute and device idle shares); the written
+   ``{family}.pt`` is loaded by the family's adapter (``build_backbone``)
+   and segments one 192×256 round;
+21. vos_train_dp: a TAPNet ``run`` with ``dp_windows=2`` for 3 steps.
 
 Then it prints the kernel table (one JSON object; each kernel's launches
 are those of its path's run: the TAPNet slice for the fused-box kernel
@@ -215,6 +233,30 @@ AGENT_FRAMES = 48
 # (tests/test_torch_agent_update.py): losses within 1e-5 relative, each
 # parameter within 1e-3·lr·updates + 2 ulp of the host's
 AGENT_LOSS_RTOL = 1e-5
+# VOS training (train_vos): one step at 48×64 (K=3, O=2) on the card and on
+# the host from the same seeded weights and window, held to the bounds of
+# the CPU tests against the JAX package (tests/torch_train_vos_cases.py,
+# where each is measured): the loss within VOS_STEP_LOSS_RTOL relative;
+# every parameter's gradient within VOS_GRAD_RTOL relative L2 (bf16
+# gradients are good to ~20 % in their worst tensor against float32 in
+# either package); after the Adam step every element within 2·lr of the
+# host's (a gradient whose sign differs moves it the other way) and at most
+# VOS_STEP_FLIP_SHARE of them further apart than lr/100
+VOS_STEP_LOSS_RTOL = 2e-3
+VOS_GRAD_RTOL = 0.3
+VOS_STEP_FLIP_SHARE = 0.1
+# then the JAX package's largest VOS training configuration: the HD demo
+# tier (192×256, 3 objects), window 5, lr 3e-4, round2_prob 0.5
+# (scripts/demo_ordering.py), cut to VOS_TRAIN_CLIPS clips and
+# VOS_TRAIN_STEPS steps from the seeded init for time (the demo trains 3500
+# steps on 160 clips); VOS_PROFILE_STEPS steps profiled; a TAPNet run with
+# 2 windows a step for VOS_DP_STEPS steps
+VOS_TRAIN_CLIPS = 4
+VOS_TRAIN_STEPS = 30
+VOS_TRAIN_WINDOW = 5
+VOS_TRAIN_LR = 3e-4
+VOS_PROFILE_STEPS = 3
+VOS_DP_STEPS = 3
 
 
 def log_phase(name: str, tic: float, **fields) -> None:
@@ -549,8 +591,9 @@ def phase_slice(torch, dev, kinfo):
     return launches
 
 
-def profile_device(torch, fn, wall_ms: float, launched=(), top: int = 10):
-    """torch.profiler over PROFILE_CALLS consecutive calls of ``fn`` (QA
+def profile_device(torch, fn, wall_ms: float, launched=(), top: int = 10,
+                   calls: int = PROFILE_CALLS):
+    """torch.profiler over ``calls`` consecutive calls of ``fn`` (QA
     rounds, train steps; after a profiled warm-up that pays the tracer's
     start-up), device activity only, means per call: the device time of
     each kernel and copy, the copies' (memcpy / memset) sum apart from the
@@ -570,16 +613,16 @@ def profile_device(torch, fn, wall_ms: float, launched=(), top: int = 10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(PROFILE_CALLS):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-            profiled_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_CALLS
+            profiled_ms = (time.perf_counter() - t0) * 1e3 / calls
     device = [
         e for e in prof.key_averages()
         if e.device_time_total > 0 and not e.key.startswith("Activity Buffer")
     ]
     device.sort(key=lambda e: e.device_time_total, reverse=True)
-    ms = lambda e: e.device_time_total / 1e3 / PROFILE_CALLS
+    ms = lambda e: e.device_time_total / 1e3 / calls
     crop = {}
     for (wrapper, names), count in zip(launched, counts):
         n = wrapper.launches - count
@@ -597,12 +640,12 @@ def profile_device(torch, fn, wall_ms: float, launched=(), top: int = 10):
     compute_ms = sum(ms(e) for e in device if not is_copy(e))
     return {
         "wall_ms": wall_ms,
-        "profiled_calls": PROFILE_CALLS,
+        "profiled_calls": calls,
         "profiled_wall_ms": profiled_ms,
         "compute_ms": compute_ms,
         "copy_ms": copy_ms,
         "compute_idle_share": 1.0 - compute_ms / profiled_ms,
-        "kernels_per_call": sum(e.count for e in device if not is_copy(e)) / PROFILE_CALLS,
+        "kernels_per_call": sum(e.count for e in device if not is_copy(e)) / calls,
         "device_idle_share": 1.0 - (compute_ms + copy_ms) / profiled_ms,
         "crop_kernels": crop,
         "top": [
@@ -1681,6 +1724,189 @@ def phase_agent_wild(torch, dev, kinfo):
     return launches
 
 
+def vos_step_window(registry, window, seed, round2_prob=1.0):
+    """One seeded training window of ``registry`` (host arrays)."""
+    import numpy as np
+
+    from ivosw_tpu_torch.interact.robot import ScribbleRobot
+    from ivosw_tpu_torch.train.train_vos import sample_windows
+
+    stream = sample_windows(registry, registry.subset("train"), np.random.default_rng(seed),
+                            window, ScribbleRobot(seed=seed), round2_prob=round2_prob)
+    return next(stream)
+
+
+def phase_vos_train_small(torch, dev, vos):
+    """One ``vos_train_step`` of ``vos`` at 48×64 (K=3, O=2, a round-2
+    window) on the card and on the host from the same seeded weights."""
+    from ivosw_tpu_torch.data.registry import SequenceRegistry
+    from ivosw_tpu_torch.train import train_vos as tv
+
+    tic = time.perf_counter()
+    reg = SequenceRegistry.synthetic(["s", "t"], num_frames=6, image_size=(64, 48),
+                                     num_objects=2, split="train", seed=SEED)
+    win = vos_step_window(reg, 3, SEED)
+    net_cls, init_fn, loss_fn, _ = tv._family(vos)
+    init = init_fn(SEED)
+    out = {}
+    for side, device in (("card", dev), ("host", torch.device("cpu"))):
+        net = net_cls()
+        net.load_state_dict(init)
+        net.to(device)
+        opt = tv.make_vos_optimizer(net.parameters(), VOS_TRAIN_LR)
+        loss = float(tv.vos_train_step(net, opt, tv.upload_window(win, device), loss_fn))
+        out[side] = (loss, {n: (p.grad.float().cpu(), p.detach().cpu())
+                            for n, p in net.named_parameters()})
+    (loss_c, card), (loss_h, host) = out["card"], out["host"]
+    loss_err = abs(loss_c - loss_h) / abs(loss_h)
+    grad_err = {n: float((card[n][0] - g).norm() / g.norm().clamp_min(1e-30))
+                for n, (g, _) in host.items()}
+    worst = max(grad_err, key=grad_err.get)
+    param_err, far, total = 0.0, 0, 0
+    for n, (_, p) in host.items():
+        diff = (card[n][1] - p).abs()
+        slack = 2 * VOS_TRAIN_LR + 4 * torch.finfo(torch.float32).eps * init[n].abs()
+        if not bool((diff <= slack + 1e-12).all()):
+            raise AssertionError(f"{vos} card vs host step: {n} moved {float(diff.max())} "
+                                 f"from the host's (bound 2·lr)")
+        param_err = max(param_err, float(diff.max()))
+        far += int((diff > VOS_TRAIN_LR / 100).sum())
+        total += diff.numel()
+    report = {"loss_card": loss_c, "loss_host": loss_h, "loss_rel_err": loss_err,
+              "grad_worst_rel_l2": grad_err[worst], "grad_worst_param": worst,
+              "grad_median_rel_l2": sorted(grad_err.values())[len(grad_err) // 2],
+              "param_max_abs_err": param_err, "param_far_share": far / total}
+    if not (loss_err <= VOS_STEP_LOSS_RTOL and grad_err[worst] <= VOS_GRAD_RTOL
+            and far / total <= VOS_STEP_FLIP_SHARE):
+        raise AssertionError(f"{vos} card vs host step: {report}")
+    log_phase(f"vos_train_small_{vos}", tic, **report, loss_bound=VOS_STEP_LOSS_RTOL,
+              grad_bound=VOS_GRAD_RTOL, far_share_bound=VOS_STEP_FLIP_SHARE)
+
+
+def crop_launch_counts():
+    from ivosw_tpu_torch.kernels import roi_crop
+
+    return {name: getattr(roi_crop, name).launches for name in
+            ("roi_crop", "roi_crop_pairs", "roi_crop_pairs_fusedbox", "roi_crop_pairs_premat")}
+
+
+def phase_vos_train(torch, dev, kinfo, vos):
+    """``train_vos.run`` of ``vos`` on the card at the HD demo tier; the
+    written checkpoint segments one round through the family's adapter."""
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.data.demo import HD_SPEC, demo_training_registry
+    from ivosw_tpu_torch.data.registry import SequenceRegistry
+    from ivosw_tpu_torch.eval.backbones import build_backbone
+    from ivosw_tpu_torch.interact.robot import ScribbleRobot
+    from ivosw_tpu_torch.train import train_vos as tv
+
+    tic = time.perf_counter()
+    registry = demo_training_registry(n_clips=VOS_TRAIN_CLIPS + 1, seed=1, spec=HD_SPEC)
+    # the last clip is held out of training: the loss is read on one of its
+    # round-2 windows before and after
+    name = registry.subset("train")[-1]
+    held = SequenceRegistry(sequences={name: registry.sequences.pop(name)},
+                            _synthetic={name: registry._synthetic.pop(name)})
+    net_cls, init_fn, loss_fn, _ = tv._family(vos)
+    held_out = tv.upload_window(vos_step_window(held, VOS_TRAIN_WINDOW, SEED), dev)
+    init = init_fn(SEED)
+
+    def held_out_loss(state):
+        net = net_cls()
+        net.load_state_dict(state)
+        with torch.no_grad():
+            return float(loss_fn(net.to(dev), held_out))
+
+    loss_before = held_out_loss(init)
+    setup_s = time.perf_counter() - tic
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = Config(seed=SEED, vos=vos, ckpt_dir=ckpt)
+        timings = {}
+        crops = crop_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = tv.run(cfg, registry=registry, num_steps=VOS_TRAIN_STEPS, window=VOS_TRAIN_WINDOW,
+                     lr=VOS_TRAIN_LR, params=init, save_every=VOS_TRAIN_STEPS, round2_prob=0.5,
+                     device=dev, timings=timings, log=logging.getLogger("vos_train"))
+        run_s = time.perf_counter() - t0
+        peak_bytes = torch.cuda.max_memory_allocated(dev)
+        crop_launches = {k: v - crops[k] for k, v in crop_launch_counts().items()}
+        loss_after = held_out_loss(out["params"])
+
+        # the written {family}.pt through the adapter: one 192×256 round
+        adapter = build_backbone(cfg, registry, dev)
+        loaded = adapter.net.state_dict()
+        if any(not torch.equal(loaded[k].cpu(), v) for k, v in out["params"].items()):
+            raise AssertionError(f"{vos}: the adapter did not load the written checkpoint")
+        name = registry.subset("train")[0]
+        frames, gt = registry.load_images(name), registry.load_annotations(name)
+        n_obj = int(gt.max())
+        scribbles = ScribbleRobot(seed=SEED).interact(name, np.zeros_like(gt), gt, n_obj,
+                                                      frame=0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        labels, all_p, _ = adapter.segment(adapter.begin_sequence(frames, n_obj), scribbles, 0, 1)
+        torch.cuda.synchronize()
+        segment_ms = (time.perf_counter() - t1) * 1e3
+    if (labels.shape != gt.shape or tuple(all_p.shape) != (len(frames), n_obj + 1) + gt.shape[1:]
+            or not bool(torch.isfinite(all_p.float()).all())):
+        raise AssertionError(f"{vos}: trained adapter gave labels {labels.shape}, "
+                             f"all_P {tuple(all_p.shape)}")
+    losses = out["losses"]
+    if not np.isfinite(losses).all() or not loss_after < loss_before:
+        raise AssertionError(f"{vos}: held-out loss {loss_before} -> {loss_after}, "
+                             f"losses {losses}")
+
+    # three steps profiled on the held-out window, from the trained weights
+    net = net_cls()
+    net.load_state_dict(out["params"])
+    net.to(dev)
+    opt = tv.make_vos_optimizer(net.parameters(), VOS_TRAIN_LR)
+    step_ms = [x * 1e3 for x in timings["step_s"]]
+    profile = profile_device(torch, lambda: tv.vos_train_step(net, opt, held_out, loss_fn),
+                             float(np.median(step_ms[3:])), calls=VOS_PROFILE_STEPS)
+    log_phase(
+        f"vos_train_{vos}", tic, setup_seconds=setup_s, run_seconds=run_s,
+        steps=VOS_TRAIN_STEPS, window=VOS_TRAIN_WINDOW, clips=VOS_TRAIN_CLIPS,
+        hw=[HD_SPEC.h, HD_SPEC.w], lr=VOS_TRAIN_LR,
+        step_ms_median=float(np.median(step_ms[3:])), step_ms=step_ms,
+        window_ms_median=float(np.median(timings["window_s"])) * 1e3,
+        upload_ms_median=float(np.median(timings["upload_s"])) * 1e3,
+        peak_memory_bytes=peak_bytes, held_out_loss_before=loss_before,
+        held_out_loss_after=loss_after, losses=losses, crop_kernel_launches=crop_launches,
+        kernels_per_step=profile["kernels_per_call"],
+        compute_idle_share=profile["compute_idle_share"],
+        device_idle_share=profile["device_idle_share"], adapter_segment_ms=segment_ms,
+        card=kinfo["name"], power_limit=kinfo["power_limit"],
+    )
+    print(json.dumps({"phase": f"vos_train_{vos}_profile", **profile}), flush=True)
+
+
+def phase_vos_train_dp(torch, dev):
+    """A TAPNet ``run`` with two windows a step (``vos_train_step_dp``)."""
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.data.demo import HD_SPEC, demo_training_registry
+    from ivosw_tpu_torch.train import train_vos as tv
+
+    tic = time.perf_counter()
+    registry = demo_training_registry(n_clips=VOS_TRAIN_CLIPS, seed=1, spec=HD_SPEC)
+    with tempfile.TemporaryDirectory() as ckpt:
+        timings = {}
+        out = tv.run(Config(seed=SEED, vos="tapnet", ckpt_dir=ckpt), registry=registry,
+                     num_steps=VOS_DP_STEPS, window=VOS_TRAIN_WINDOW, lr=VOS_TRAIN_LR,
+                     save_every=VOS_DP_STEPS, dp_windows=2, device=dev, timings=timings,
+                     log=logging.getLogger("vos_train"))
+    if len(out["losses"]) != VOS_DP_STEPS or not np.isfinite(out["losses"]).all():
+        raise AssertionError(f"dp_windows=2 run: losses {out['losses']}")
+    log_phase("vos_train_dp", tic, dp_windows=2, steps=VOS_DP_STEPS, losses=out["losses"],
+              step_ms=[x * 1e3 for x in timings["step_s"]])
+
+
 def main() -> int:
     import torch
 
@@ -1731,6 +1957,11 @@ def main() -> int:
     phase_agent_pipeline(torch, dev)
     agent_launches = phase_agent_wild(torch, dev, kinfo)
     vos_launches = {vos: phase_vos_slice(torch, dev, kinfo, vos) for vos in VOS_SPLIT}
+    for vos in ("tapnet", "matchnet", "ipnet"):
+        phase_vos_train_small(torch, dev, vos)
+    for vos in ("tapnet", "matchnet", "ipnet"):
+        phase_vos_train(torch, dev, kinfo, vos)
+    phase_vos_train_dp(torch, dev)
 
     def row(name, source, replaces, launches, st, bound_by, path):
         return {
