@@ -139,11 +139,27 @@ with its own seconds:
    ``{family}.pt`` is loaded by the family's adapter (``build_backbone``)
    and segments one 192×256 round;
 21. vos_train_dp: a TAPNet ``run`` with ``dp_windows=2`` for 3 steps.
+22. dataset_slice: the evaluation CLI's path from a dataset tree. One
+   480×854 demo clip (48 frames, 3 objects) is written as a YouTube-VOS
+   source tree by the script's own writers (q95 4:2:0 baseline JPEGs with
+   libjpeg's integer DCT and tables, 8-bit palette PNGs, the robot's
+   round-1 scribbles as ``Scribbles`` JSON files), converted by the port's
+   ``create_dataset``/``create_json`` and read back by ``from_json`` and
+   ``from_davis_root``: both give the same frames, the annotations equal
+   the written labels, and the SHA-256 of the first two decoded frames
+   equals PIL's (``DATASET_DIGEST``). Then ``build_and_evaluate`` with
+   ``dataset=ytbvos`` over the tree (TAPNet, wild ``ours``,
+   ``bf16_inputs``, seeded weights, DATASET_ROUNDS rounds): the fused-box
+   launches, zeroed just before and read just after, must equal
+   3 episodes · rounds · ceil(48/32), and round 1 of all 3 episodes must
+   come from the scribble files. Encode and decode ms per frame, the clip's
+   cold and cached load, ``seg_time_avg``, ``rec_time_avg``, the host's
+   J&F and submission seconds, peak memory.
 
 Then it prints the kernel table (one JSON object; each kernel's launches
 are those of its path's run: the TAPNet slice for the fused-box kernel
-(the FakeVOS slice's, the agent rollout's and the MatchNet and IPNet
-slices' under keys of their own), the
+(the FakeVOS slice's, the agent rollout's, the MatchNet and IPNet slices'
+and the dataset slice's under keys of their own), the
 training run for the crop kernel, the two-stage round for the pair kernel;
 the matrix crop is on no path; the fused-box, crop and pair kernels' rows
 also carry ``device_ms`` and ``bound_share``), the card's name and power limit as
@@ -257,6 +273,17 @@ VOS_TRAIN_WINDOW = 5
 VOS_TRAIN_LR = 3e-4
 VOS_PROFILE_STEPS = 3
 VOS_DP_STEPS = 3
+# dataset_slice: one demo clip at 480×854 with the demo's shortest length
+# (48 frames), written as q95 JPEGs, evaluated for DATASET_ROUNDS rounds per
+# episode: cut from 3, since with seeded TAPNet's ragged masks the host's
+# J&F and the session's submission (J&F rows, robot) took ~25 s a round on
+# the card's machine, and the phase 319 s with 3; the SHA-256 of its first
+# two frames as PIL decodes the encoder's bytes (tests/test_torch_jpeg.py
+# recomputes it on the CPU)
+DATASET_FRAMES = 48
+DATASET_ROUNDS = 2
+DATASET_QUALITY = 95
+DATASET_DIGEST = "ec543dc3a28045bedd19004effaf2b4060da7c3606f05e92786ffed7f5755f76"
 
 
 def log_phase(name: str, tic: float, **fields) -> None:
@@ -1907,6 +1934,424 @@ def phase_vos_train_dp(torch, dev):
               step_ms=[x * 1e3 for x in timings["step_s"]])
 
 
+def write_ytbvos_source(src, scb, name, frames, anns, num_scribbles):
+    """A YouTube-VOS-style source tree of one clip, as
+    ``scripts/demo_ytbvos.py::stage_fabricate`` writes it: frames as q95
+    4:2:0 JPEGs and annotations as palette PNGs, numbered every 5th
+    (``00005``, ``00010``, …), and the robot's round-1 scribbles at the
+    session's bootstrap frames as ``<scb>/<name>/00N.json``. Returns the
+    encode seconds of each frame."""
+    import numpy as np
+
+    from ivosw_tpu_torch.interact.robot import ScribbleRobot
+
+    jdir = os.path.join(src, "train", "JPEGImages", name)
+    adir = os.path.join(src, "train", "CleanedAnnotations", name)
+    sdir = os.path.join(scb, name)
+    for d in (jdir, adir, sdir):
+        os.makedirs(d)
+    palette = [0, 0, 0, 255, 0, 0, 0, 255, 0, 0, 0, 255] + [0] * 756
+    encode_s = []
+    for i in range(len(frames)):
+        t0 = time.perf_counter()
+        data = encode_jpeg(frames[i], DATASET_QUALITY)
+        encode_s.append(time.perf_counter() - t0)
+        with open(os.path.join(jdir, f"{5 * (i + 1):05d}.jpg"), "wb") as fp:
+            fp.write(data)
+        write_palette_png(os.path.join(adir, f"{5 * (i + 1):05d}.png"), anns[i], palette)
+    robot = ScribbleRobot(seed=SEED)
+    t = len(frames)
+    for idx in range(1, num_scribbles + 1):
+        frame = min(max(int(round((idx - 0.5) * t / num_scribbles)), 0), t - 1)
+        scrib = robot.interact(name, np.zeros_like(anns), anns, int(anns.max()), frame)
+        with open(os.path.join(sdir, f"{idx:03d}.json"), "w") as fp:
+            json.dump(scrib, fp, default=lambda o: o.tolist())
+    with open(os.path.join(scb, "val.txt"), "w") as fp:
+        fp.write(name + "\n")
+    return encode_s
+
+
+def phase_dataset_slice(torch, dev, kinfo):
+    """The evaluation CLI's path from a dataset tree on disk: one 480×854
+    demo clip written as a YouTube-VOS source tree, converted by the port's
+    ``create_dataset``/``create_json``, read back by ``from_json`` and
+    ``from_davis_root`` (annotations equal to the written labels, the first
+    two frames' digest equal to PIL's decode of the same bytes), then
+    ``build_and_evaluate`` with ``dataset=ytbvos`` over the tree: TAPNet,
+    the fused-box kernel, the bf16 AssessNet and the agent, round 1 of each
+    episode from the tree's scribble files."""
+    import hashlib
+
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import load_config
+    from ivosw_tpu_torch.data import jpeg
+    from ivosw_tpu_torch.data.demo import DemoSpec, demo_training_registry
+    from ivosw_tpu_torch.data.registry import SequenceRegistry
+    from ivosw_tpu_torch.data.ytbvos_prepare import create_dataset, create_json
+    from ivosw_tpu_torch.eval import eval_agent
+    from ivosw_tpu_torch.eval.eval_agent import build_and_evaluate
+    from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK
+    from ivosw_tpu_torch.interact.session import InteractiveSession
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop_pairs_fusedbox
+
+    tic = time.perf_counter()
+    spec = DemoSpec(h=H, w=W, num_frames=DATASET_FRAMES, num_objects=O, blob=BLOB)
+    clip = demo_training_registry(n_clips=1, seed=SEED, spec=spec)
+    name = clip.subset("train")[0]
+    frames = (np.asarray(clip.load_images(name)) * 255).astype(np.uint8)
+    anns = np.asarray(clip.load_annotations(name)).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, scb, dst = (os.path.join(tmp, d) for d in ("src", "scb", "dst"))
+        encode_s = write_ytbvos_source(src, scb, name, frames, anns, 3)
+
+        # convert, then read the tree back with both constructors
+        t0 = time.perf_counter()
+        create_dataset(src, dst, scb)
+        create_json(dst)
+        convert_s = time.perf_counter() - t0
+        by_json = SequenceRegistry.from_json(os.path.join(dst, "scb_ytbvos.json"), root=dst)
+        by_tree = SequenceRegistry.from_davis_root(dst)
+        if by_json.sequences != by_tree.sequences or by_json.subset("val") != [name]:
+            raise AssertionError(f"registries differ: {by_json.sequences} vs {by_tree.sequences}")
+        info = by_json.info(name)
+        if (info.num_frames, info.image_size, info.num_objects) != (DATASET_FRAMES, (W, H), O):
+            raise AssertionError(f"sequence info {info}")
+        t0 = time.perf_counter()
+        images = by_json.load_images(name)
+        load_cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = by_json.load_images(name)
+        load_cached_s = time.perf_counter() - t0
+        for reg in (by_json, by_tree):
+            if not np.array_equal(reg.load_annotations(name), anns):
+                raise AssertionError("annotations read back differ from the labels written")
+        if again is not images or not np.array_equal(by_tree.load_images(name), images):
+            raise AssertionError("from_davis_root and from_json frames differ")
+        jdir = os.path.join(dst, "JPEGImages", "480p", name)
+        files = [os.path.join(jdir, f) for f in sorted(os.listdir(jdir))]
+        jpeg_bytes = float(np.mean([os.path.getsize(f) for f in files]))
+        files = files[:2]
+        decode_s, decoded = [], []
+        for f in files:
+            t0 = time.perf_counter()
+            decoded.append(jpeg.read_rgb(f))
+            decode_s.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(np.stack(decoded).tobytes()).hexdigest()
+        if digest != DATASET_DIGEST:
+            raise AssertionError(f"decoded frames' digest {digest}, PIL's {DATASET_DIGEST}")
+        if not np.array_equal(images[:2], np.stack(decoded).astype(np.float32) / 255.0):
+            raise AssertionError("load_images differs from the decoded frames")
+        del by_json, by_tree, images, again
+
+        # the evaluation CLI's wiring over the tree, seeded weights
+        empty = os.path.join(tmp, "weights")
+        cfg = load_config(os.path.join(REPO, "configs", "config.yaml"), [
+            "dataset=ytbvos", f"data.root_dir_scribble_youtube_vos={dst}", "vos=tapnet",
+            "setting=wild", "method=ours", f"eval_rounds={DATASET_ROUNDS}",
+            "assess_net.bf16_inputs=true", f"ckpt_dir={empty}", f"seed={SEED}",
+        ])
+        cfg.phase = "eval"
+        # round 1 from the scribble files: _load_human_scribble's non-None
+        # returns; and the host's share of the run: the CLI registry's clip
+        # decode, the evaluation loop's J&F and the session's submission
+        # (its J&F rows and the robot), each call timed
+        human, host_s = [], {"load_images": [], "sequence_metric": [], "submit_masks": []}
+        hooks = [(InteractiveSession, "_load_human_scribble"),
+                 (SequenceRegistry, "load_images"), (eval_agent, "sequence_metric"),
+                 (InteractiveSession, "submit_masks")]
+        originals = [getattr(owner, attr) for owner, attr in hooks]
+
+        def timed(fn, store):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                store.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        def counted(self, *args, **kwargs):
+            out = originals[0](self, *args, **kwargs)
+            human.append(out is not None)
+            return out
+
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the summary goes to results/ under the cwd
+        InteractiveSession._load_human_scribble = counted
+        for (owner, attr), fn in list(zip(hooks, originals))[1:]:
+            setattr(owner, attr, timed(fn, host_s[attr]))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            roi_crop_pairs_fusedbox.launches = 0
+            t0 = time.perf_counter()
+            summary = build_and_evaluate(cfg, device=dev)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            launches = roi_crop_pairs_fusedbox.launches
+        finally:
+            for (owner, attr), fn in zip(hooks, originals):
+                setattr(owner, attr, fn)
+            os.chdir(cwd)
+        peak_bytes = torch.cuda.max_memory_allocated(dev)
+
+    episodes = 3
+    expected = episodes * DATASET_ROUNDS * math.ceil(DATASET_FRAMES / FRAME_CHUNK)
+    curve = summary["curve"]["J_AND_F"]
+    if launches != expected:
+        raise AssertionError(f"fused-box kernel launched {launches}x, expected {expected}")
+    if sum(human) != episodes or len(human) != episodes:
+        raise AssertionError(f"round 1 from scribble files in {sum(human)} of {len(human)} episodes")
+    if len(curve) != DATASET_ROUNDS or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in curve):
+        raise AssertionError(f"J&F curve {curve} malformed for {DATASET_ROUNDS} rounds")
+    if len(summary["report"]) != episodes * DATASET_ROUNDS:
+        raise AssertionError(f"{len(summary['report'])} rounds reported")
+    log_phase(
+        "dataset_slice", tic, sequence=name, frames=DATASET_FRAMES, height=H, width=W,
+        quality=DATASET_QUALITY, jpeg_bytes_mean=jpeg_bytes,
+        encode_ms_per_frame=float(np.mean(encode_s)) * 1e3,
+        decode_ms_per_frame=float(np.mean(decode_s)) * 1e3, convert_seconds=convert_s,
+        clip_load_cold_seconds=load_cold_s, clip_load_cached_seconds=load_cached_s,
+        digest=digest, human_scribble_round1=sum(human), episodes=episodes,
+        rounds=DATASET_ROUNDS, launches=launches, expected_launches=expected,
+        curve=curve, auc=summary["auc"], eval_seconds=eval_s,
+        eval_host_seconds={k: sum(v) for k, v in host_s.items()},
+        eval_host_calls={k: len(v) for k, v in host_s.items()},
+        seg_time_avg_s=summary["timing"]["seg_time_avg"],
+        rec_time_avg_s=summary["timing"]["rec_time_avg"], peak_memory_bytes=peak_bytes,
+        card=kinfo["name"], power_limit=kinfo["power_limit"],
+    )
+    return launches
+
+
+# JPEG and palette-PNG writers of the dataset_slice phase: the counterpart of
+# PIL's save in scripts/demo_ytbvos.py (the card's machine has no PIL).
+# Integer arithmetic throughout, so the bytes are the same on every machine.
+# Annex K tables in zig-zag order (libjpeg's std tables; quality 50 = these)
+JPEG_LUMA_Q = (
+    16, 11, 12, 14, 12, 10, 16, 14, 13, 14, 18, 17, 16, 19, 24, 40, 26, 24, 22, 22, 24, 49,
+    35, 37, 29, 40, 58, 51, 61, 60, 57, 51, 56, 55, 64, 72, 92, 78, 64, 68, 87, 69, 55, 56,
+    80, 109, 81, 87, 95, 98, 103, 104, 103, 62, 77, 113, 121, 112, 100, 120, 92, 101, 103, 99,
+)
+JPEG_CHROMA_Q = (17, 18, 18, 24, 21, 24, 47, 26, 26, 47, 99, 66, 56, 66) + (99,) * 50
+# (DHT class/id, BITS, HUFFVAL) of Annex K.3
+JPEG_HUFFMAN = (
+    (0x00, "00010501010101010100000000000000", "000102030405060708090a0b"),
+    (0x10, "0002010303020403050504040000017d",
+     "01020300041105122131410613516107227114328191a1082342b1c11552d1f0243362728209"
+     "0a161718191a25262728292a3435363738393a434445464748494a535455565758595a63646566"
+     "6768696a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2"
+     "b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3"
+     "f4f5f6f7f8f9fa"),
+    (0x01, "00030101010101010101010000000000", "000102030405060708090a0b"),
+    (0x11, "00020102040403040705040400010277",
+     "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a1624"
+     "34e125f11718191a262728292a35363738393a434445464748494a535455565758595a63646566"
+     "6768696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aa"
+     "b2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4"
+     "f5f6f7f8f9fa"),
+)
+JPEG_ZIGZAG = (
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+    27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37,
+    44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+)
+
+
+def jpeg_quant_tables(quality):
+    """libjpeg's jpeg_quality_scaling + jpeg_add_quant_table (baseline)."""
+    import numpy as np
+
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    return [np.clip((np.array(t, np.int64) * scale + 50) // 100, 1, 255)
+            for t in (JPEG_LUMA_Q, JPEG_CHROMA_Q)]
+
+
+def fdct_islow(blocks):
+    """jfdctint.c's jpeg_fdct_islow over [N, 8, 8] centred samples → [N, 8, 8]
+    coefficients scaled by 8 (natural order)."""
+    import numpy as np
+
+    def one_pass(d, shift_even, shift_odd):
+        t0, t7 = d[0] + d[7], d[0] - d[7]
+        t1, t6 = d[1] + d[6], d[1] - d[6]
+        t2, t5 = d[2] + d[5], d[2] - d[5]
+        t3, t4 = d[3] + d[4], d[3] - d[4]
+        t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+        out = [None] * 8
+        out[0], out[4] = shift_even(t10 + t11), shift_even(t10 - t11)
+        z1 = (t12 + t13) * 4433
+        out[2] = shift_odd(z1 + t13 * 6270)
+        out[6] = shift_odd(z1 - t12 * 15137)
+        z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+        z5 = (z3 + z4) * 9633
+        t4, t5, t6, t7 = t4 * 2446, t5 * 16819, t6 * 25172, t7 * 12299
+        z1, z2 = z1 * -7373, z2 * -20995
+        z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+        out[7], out[5] = shift_odd(t4 + z1 + z3), shift_odd(t5 + z2 + z4)
+        out[3], out[1] = shift_odd(t6 + z2 + z3), shift_odd(t7 + z1 + z4)
+        return out
+
+    descale = lambda x, n: (x + (1 << (n - 1))) >> n  # noqa: E731
+    b = blocks.astype(np.int64)
+    rows = one_pass([b[:, :, k] for k in range(8)], lambda x: x << 2,
+                    lambda x: descale(x, 11))
+    ws = np.stack(rows, axis=2)
+    cols = one_pass([ws[:, k, :] for k in range(8)], lambda x: descale(x, 2),
+                    lambda x: descale(x, 15))
+    return np.stack(cols, axis=1)
+
+
+def _huffman_codes(bits_hex, vals_hex):
+    """symbol → (code, length) of a DHT table."""
+    counts, vals = bytes.fromhex(bits_hex), bytes.fromhex(vals_hex)
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            codes[vals[k]] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes
+
+
+def _code_arrays(bits_hex, vals_hex):
+    import numpy as np
+
+    code, length = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    for sym, (c, n) in _huffman_codes(bits_hex, vals_hex).items():
+        code[sym], length[sym] = c, n
+    return code, length
+
+
+def encode_jpeg(rgb, quality=95):
+    """[H, W, 3] uint8 → the bytes of a baseline JFIF JPEG, 4:2:0 (Y 2×2,
+    Cb and Cr 1×1), the Annex K tables scaled by libjpeg's quality rule, one
+    interleaved scan. The image is padded to whole 16×16 MCUs by repeating
+    its last row and column; chroma is the 2×2 mean with libjpeg's
+    alternating 1, 2 bias."""
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    hp, wp = -(-h // 16) * 16, -(-w // 16) * 16
+    x = np.pad(rgb.astype(np.int64), ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    fix = lambda v: int(v * 65536 + 0.5)  # noqa: E731  jccolor.c, SCALEBITS 16
+    half, offset = 1 << 15, 128 << 16
+    y = (fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + offset + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + offset + half - 1) >> 16
+    bias = np.tile([1, 2], wp // 4)
+
+    def down(c):  # jcsample.c h2v2_downsample
+        return (c[0::2, 0::2] + c[0::2, 1::2] + c[1::2, 0::2] + c[1::2, 1::2] + bias) >> 2
+
+    def blocks(plane):  # [rows, cols] → [rows/8, cols/8, 8, 8]
+        pr, pc = plane.shape
+        return plane.reshape(pr // 8, 8, pc // 8, 8).transpose(0, 2, 1, 3)
+
+    my, mx = hp // 16, wp // 16
+    yb = blocks(y).reshape(my, 2, mx, 2, 8, 8).transpose(0, 2, 1, 3, 4, 5).reshape(my, mx, 4, 8, 8)
+    scan = np.concatenate([yb, blocks(down(cb))[:, :, None], blocks(down(cr))[:, :, None]],
+                          axis=2).reshape(-1, 8, 8)  # MCU order: Y0 Y1 Y2 Y3 Cb Cr
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    qtabs = jpeg_quant_tables(quality)
+    zz = fdct_islow(scan - 128).reshape(-1, 64)[:, list(JPEG_ZIGZAG)]
+    div = np.stack([qtabs[0], qtabs[1], qtabs[1]])[comp] << 3  # jcdctmgr.c divisors
+    coef = np.sign(zz) * ((np.abs(zz) + (div >> 1)) // div)
+
+    # symbols in stream order: per block DC, then per non-zero AC its ZRLs
+    # and (run, size), then EOB unless the block ends on a non-zero
+    n_blocks = len(coef)
+    dc = coef[:, 0]
+    diff = np.empty_like(dc)
+    for c in range(3):
+        sel = np.flatnonzero(comp == c)
+        diff[sel] = np.diff(dc[sel], prepend=0)
+    tables = [_code_arrays(*JPEG_HUFFMAN[i][1:]) for i in range(4)]  # DC0 AC0 DC1 AC1
+    chroma = comp > 0
+
+    def huff(ac, is_chroma, sym):  # (code, length) in the block's table
+        luma, chrom = tables[int(ac)], tables[2 + int(ac)]
+        return (np.where(is_chroma, chrom[0][sym], luma[0][sym]),
+                np.where(is_chroma, chrom[1][sym], luma[1][sym]))
+
+    def size_of(v):
+        a = np.abs(v)
+        s = np.zeros_like(a)
+        while (a >> s).any():
+            s = s + ((a >> s) > 0)
+        return s
+
+    def extra(v, s):
+        return np.where(v < 0, v + (1 << s) - 1, v) & ((1 << s) - 1)
+
+    keys, vals, lens = [], [], []
+
+    def emit(key, code_len, value=0, nbits=0):
+        keys.append(key)
+        vals.append((code_len[0] << nbits) | value)
+        lens.append(code_len[1] + nbits)
+
+    s = size_of(diff)
+    emit(np.arange(n_blocks) * 256, huff(False, chroma, s), extra(diff, s), s)
+    ac = coef[:, 1:]
+    blk, pos = np.nonzero(ac)
+    k = pos + 1
+    first = np.r_[True, blk[1:] != blk[:-1]]
+    run = k - np.where(first, 0, np.r_[0, k[:-1]]) - 1
+    v = ac[blk, pos]
+    s = size_of(v)
+    emit(blk * 256 + 2 * k + 1, huff(True, chroma[blk], ((run & 15) << 4) | s), extra(v, s), s)
+    zrl = np.repeat(np.arange(len(k)), run >> 4)  # 16 zeros each, before the coefficient
+    emit(blk[zrl] * 256 + 2 * k[zrl], huff(True, chroma[blk[zrl]], 0xF0))
+    eob = np.flatnonzero(ac[:, -1] == 0)
+    emit(eob * 256 + 200, huff(True, chroma[eob], 0))
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    val = np.concatenate(vals)[order]
+    n = np.concatenate(lens)[order]
+
+    # bits, MSB first; the last byte padded with ones; 0xFF stuffed with 0x00
+    start = np.cumsum(n) - n
+    total = int(n.sum())
+    sym_of = np.repeat(np.arange(len(n)), n)
+    j = np.arange(total) - start[sym_of]
+    bits = (val[sym_of] >> (n[sym_of] - 1 - j)) & 1
+    bits = np.concatenate([bits, np.ones(-total % 8, np.int64)]).astype(np.uint8)
+    data = np.packbits(bits)
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+    header = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for i, q in enumerate(qtabs):
+        header += seg(0xDB, bytes([i]) + bytes(q.astype(np.uint8)))
+    header += seg(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+                  + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for tc, bits_hex, vals_hex in JPEG_HUFFMAN:
+        header += seg(0xC4, bytes([tc]) + bytes.fromhex(bits_hex) + bytes.fromhex(vals_hex))
+    header += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return header + data + b"\xff\xd9"
+
+
+def write_palette_png(path, labels, palette):
+    """[H, W] uint8 labels → an 8-bit palette PNG (filter None on every row)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    h, w = labels.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), labels.astype(np.uint8)], axis=1)
+    with open(path, "wb") as fp:
+        fp.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+                 + chunk(b"PLTE", bytes(palette)) + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                 + chunk(b"IEND", b""))
+
 def main() -> int:
     import torch
 
@@ -1962,6 +2407,7 @@ def main() -> int:
     for vos in ("tapnet", "matchnet", "ipnet"):
         phase_vos_train(torch, dev, kinfo, vos)
     phase_vos_train_dp(torch, dev)
+    dataset_launches = phase_dataset_slice(torch, dev, kinfo)
 
     def row(name, source, replaces, launches, st, bound_by, path):
         return {
@@ -1978,6 +2424,8 @@ def main() -> int:
     fused["agent_wild"] = {"launches": agent_launches, "path": "agent_wild (bf16 inputs)"}
     for vos, n in vos_launches.items():
         fused[f"{vos}_slice"] = {"launches": n, "path": f"{vos}_slice (bf16 inputs)"}
+    fused["dataset_slice"] = {"launches": dataset_launches,
+                              "path": "dataset_slice (build_and_evaluate over a ytbvos tree)"}
     kernels = [
         fused,
         row("roi_crop", "roi_crop.cu", 67, crop_launches, crop_stats, "bytes", "train"),

@@ -1,10 +1,13 @@
-"""Minimal PNG codec for 8-bit greyscale images (zlib + struct only).
+"""Minimal PNG codec for greyscale and palette images (zlib + struct only).
 
 The QA dump trees hold one 8-bit greyscale PNG per (round, object, frame)
-prob map. The JAX package writes and reads them with PIL, which the port
-does not use. :func:`write_gray8` writes filter type 0 (None) on every row;
-:func:`read_gray8` reads any non-interlaced 8-bit greyscale PNG and undoes
-all five filter types, since PIL's encoder picks a filter per row.
+prob map, and DAVIS and YouTube-VOS annotations are palette PNGs. The JAX
+package writes and reads them with PIL, which the port does not use.
+:func:`write_gray8` writes filter type 0 (None) on every row;
+:func:`read_gray8` reads any non-interlaced 8-bit greyscale PNG and
+:func:`read_indexed` any non-interlaced palette PNG at bit depth 1, 2, 4 or
+8; both undo all five filter types, since PIL's encoder picks a filter per
+row for greyscale images.
 """
 
 from __future__ import annotations
@@ -37,38 +40,46 @@ def write_gray8(path: str, image: np.ndarray) -> None:
         fp.write(_chunk(b"IEND", b""))
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
+def _unfilter(raw: np.ndarray) -> np.ndarray:
+    """Undo the row filters of a non-interlaced image of one byte per pixel
+    or less: ``raw`` [H, 1 + B] (each row's filter type, then its B bytes)
+    → [H, B] uint8. Rows of types None, Sub and Up are undone row by row;
+    when any row is Average or Paeth (whose bytes depend on their left
+    neighbour through a floor or a choice), the whole image is undone along
+    its anti-diagonals, each one vectorised."""
+    kinds = raw[:, 0].astype(np.int64)
+    data = raw[:, 1:].astype(np.int64)
+    h, b = data.shape
+    if (kinds > 4).any():
+        raise ValueError(f"PNG filter type {int(kinds.max())} is not defined")
+    if not np.isin(kinds, (3, 4)).any():
+        out = np.zeros((h, b), np.int64)
+        prev = np.zeros(b, np.int64)
+        for y in range(h):
+            row = data[y]
+            if kinds[y] == 1:  # Sub: running sum along the row
+                row = np.cumsum(row)
+            elif kinds[y] == 2:  # Up
+                row = row + prev
+            prev = out[y] = row & 0xFF
+        return out.astype(np.uint8)
+    # byte (y, x) needs (y, x - 1), (y - 1, x) and (y - 1, x - 1): all lie on
+    # earlier anti-diagonals y + x; a zero row above and a zero column left
+    out = np.zeros((h + 1, b + 1), np.int64)
+    for d in range(h + b - 1):
+        ys = np.arange(max(0, d - b + 1), min(h, d + 1))
+        xs = d - ys
+        a, up, c = out[ys + 1, xs], out[ys, xs + 1], out[ys, xs]
+        k = kinds[ys]
+        p = a + up - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - up), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, up, c))
+        pred = np.select([k == 1, k == 2, k == 3, k == 4], [a, up, (a + up) >> 1, paeth], 0)
+        out[ys + 1, xs + 1] = (data[ys, xs] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
 
 
-def _unfilter_row(kind: int, row: np.ndarray, prev: np.ndarray) -> np.ndarray:
-    """Undo one row's filter (one byte per pixel); arithmetic modulo 256."""
-    if kind == 0:
-        return row
-    if kind == 1:  # Sub: running sum along the row
-        return (np.cumsum(row, dtype=np.uint64) & 0xFF).astype(np.uint8)
-    if kind == 2:  # Up
-        return row + prev  # uint8 wraps modulo 256
-    out = [0] * len(row)
-    left = 0
-    up = prev.tolist()
-    for x, v in enumerate(row.tolist()):
-        if kind == 3:  # Average
-            left = (v + ((left + up[x]) >> 1)) & 0xFF
-        elif kind == 4:  # Paeth
-            left = (v + _paeth(left, up[x], up[x - 1] if x else 0)) & 0xFF
-        else:
-            raise ValueError(f"PNG filter type {kind} is not defined")
-        out[x] = left
-    return np.asarray(out, dtype=np.uint8)
-
-
-def read_gray8(path: str) -> np.ndarray:
-    """Read a non-interlaced 8-bit greyscale PNG → [H, W] uint8."""
+def _read_chunks(path: str):
     with open(path, "rb") as fp:
         data = fp.read()
     if data[:8] != _SIGNATURE:
@@ -87,16 +98,39 @@ def read_gray8(path: str) -> np.ndarray:
             break
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, color, _, _, interlace = header
+    return header, b"".join(idat)
+
+
+def read_indexed(path: str) -> np.ndarray:
+    """Read a non-interlaced palette PNG (colour type 3, bit depth 1, 2, 4
+    or 8) → its palette indices [H, W] uint8, as
+    ``np.array(Image.open(path))`` (PLTE and tRNS are not read); an 8-bit
+    greyscale PNG reads as :func:`read_gray8`. Anything else raises."""
+    (w, h, depth, color, _, _, interlace), idat = _read_chunks(path)
+    greyscale = (depth, color, interlace) == (8, 0, 0)
+    if not greyscale and (color != 3 or depth not in (1, 2, 4, 8) or interlace):
+        raise ValueError(
+            f"{path}: bit depth {depth}, colour type {color}, interlace {interlace}; "
+            "only non-interlaced palette PNGs (depth 1, 2, 4, 8) and 8-bit greyscale are read"
+        )
+    row_bytes = (w * depth + 7) // 8
+    raw = np.frombuffer(zlib.decompress(idat), dtype=np.uint8)
+    packed = _unfilter(raw[: h * (row_bytes + 1)].reshape(h, row_bytes + 1))
+    if depth == 8:
+        return packed
+    per = 8 // depth
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    unpacked = (packed[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return unpacked.reshape(h, row_bytes * per)[:, :w].astype(np.uint8)
+
+
+def read_gray8(path: str) -> np.ndarray:
+    """Read a non-interlaced 8-bit greyscale PNG → [H, W] uint8."""
+    (w, h, depth, color, _, _, interlace), idat = _read_chunks(path)
     if (depth, color, interlace) != (8, 0, 0):
         raise ValueError(
             f"{path}: bit depth {depth}, colour type {color}, interlace {interlace}; "
             "only non-interlaced 8-bit greyscale is read"
         )
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
-    raw = raw.reshape(h, w + 1)
-    out = np.empty((h, w), dtype=np.uint8)
-    prev = np.zeros(w, dtype=np.uint8)
-    for y in range(h):
-        prev = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev)
-    return out
+    raw = np.frombuffer(zlib.decompress(idat), dtype=np.uint8)
+    return _unfilter(raw[: h * (w + 1)].reshape(h, w + 1))

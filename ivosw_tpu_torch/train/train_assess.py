@@ -116,8 +116,8 @@ def build_net(cfg: Config, net, device: torch.device):
     seeded bf16 AssessNet moved there."""
     if cfg.assess_net.imagenet_ckpt:
         raise NotImplementedError(
-            "assess_net.imagenet_ckpt: the torchvision ResNet-50 importer is a "
-            "later slice (ROADMAP); train from the seeded init or pass net="
+            "assess_net.imagenet_ckpt: the torchvision ResNet-50 importer is not "
+            "ported yet (ROADMAP §1 item 6); train from the seeded init or pass net="
         )
     if net is None:
         return init_assess_net(cfg.seed).to(device)

@@ -160,5 +160,6 @@ def test_cli_runs_on_the_demo_registry_and_guards_results(tmp_path, monkeypatch)
     assert (tmp_path / "results/fake/wild/demo/random/summary.json").exists()
     with pytest.raises(FileExistsError):
         main(argv)
-    with pytest.raises(NotImplementedError, match="dataset=davis"):
+    # the config's default dataset=davis reads data/DAVIS under the cwd: none here
+    with pytest.raises(FileNotFoundError, match="ImageSets"):
         main(["vos=fake", "--cpu"])

@@ -33,9 +33,9 @@ def _port_modules():
 
 
 def test_every_module_imports_with_jax_blocked():
-    """A fresh interpreter with jax/flax/optax/orbax (and cv2, PIL, yaml)
-    made unimportable imports every module of the port."""
-    blocked = ["jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "yaml"]
+    """A fresh interpreter with jax/flax/optax/orbax (and cv2, PIL, yaml,
+    torchvision) made unimportable imports every module of the port."""
+    blocked = ["jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "yaml", "torchvision"]
     code = (
         "import sys, importlib\n"
         f"for name in {blocked!r}:\n"
@@ -60,6 +60,7 @@ def test_every_module_imports_with_jax_blocked():
         r"\bivosw_tpu\.",
         r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b",
         r"^\s*(import|from)\s+(cv2|PIL|yaml)\b",
+        r"^\s*(import|from)\s+torchvision\b",
     ],
 )
 def test_no_file_names_the_jax_package(pattern):
@@ -110,7 +111,7 @@ def test_training_entry_points_refuse_cpu_fallback(monkeypatch):
         train_assess.run(Config(), registry=reg, save_result_dir="unused")
     cfg = Config()
     cfg.assess_net.imagenet_ckpt = "resnet50.pth"
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         pretrain_assess.run(cfg, registry=reg, num_steps=1, batch_size=1, device="cpu")
 
 

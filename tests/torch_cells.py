@@ -2,7 +2,9 @@
 the port's ``evaluate`` on the CPU and held against the cell's rows and
 against the JAX package's ``evaluate`` on the same episodes (shared by
 ``test_torch_{tapnet,matchnet,ipnet}_slice.py`` and
-``test_torch_{tapnet,matchnet,ipnet}_cells_qa.py``).
+``test_torch_{tapnet,matchnet,ipnet}_cells_qa.py``); the cells read from
+dataset trees (``ytbvos-demo``, ``davis-fake``: :func:`registries`,
+``test_torch_dataset_cells.py``) are held the same way.
 
 A cell is ``scripts/demo_ordering.py``'s evaluation: ``demo_registry(seed=0)``
 (48×64, O=2, 48 frames, 8 rounds per episode, the 24 ``val`` episodes),
@@ -67,22 +69,29 @@ import numpy as np
 import torch
 
 from ivosw_tpu.core.config import Config as JaxConfig
+from ivosw_tpu.core.config import load_config as jax_load_config
 from ivosw_tpu.data.demo import demo_registry as jax_demo_registry
+from ivosw_tpu.data.registry import SequenceRegistry as JaxRegistry
 from ivosw_tpu.eval import eval_agent as jax_eval
 from ivosw_tpu.interact import recommend as jax_recommend
 from ivosw_tpu.models.agent import Agent as JaxAgent
+from ivosw_tpu.models.assess import init_assess_variables as jax_init_assess
 from ivosw_tpu.models.fold import fold_assess_variables as jax_fold
 from ivosw_tpu.models.vos.ipnet import IPNetAdapter as JaxIPNetAdapter
+from ivosw_tpu.models.vos.fake import FakeVOS as JaxFakeVOS
 from ivosw_tpu.models.vos.matchnet import MatchNetAdapter as JaxMatchNetAdapter
 from ivosw_tpu.models.vos.tapnet import TAPNetAdapter as JaxTAPNetAdapter
 from ivosw_tpu.utils.checkpoint import load_pytree
 from ivosw_tpu_torch.core.config import Config
+from ivosw_tpu_torch.core.config import load_config
 from ivosw_tpu_torch.data.demo import demo_registry
+from ivosw_tpu_torch.data.registry import SequenceRegistry
 from ivosw_tpu_torch.eval import eval_agent
 from ivosw_tpu_torch.interact import recommend
 from ivosw_tpu_torch.models.agent import Agent
 from ivosw_tpu_torch.models.assess import AssessNet
 from ivosw_tpu_torch.models.fold import fold_assess_variables
+from ivosw_tpu_torch.models.vos.fake import FakeVOS
 from ivosw_tpu_torch.models.vos.ipnet import IPNet, IPNetAdapter
 from ivosw_tpu_torch.models.vos.matchnet import MatchNet, MatchNetAdapter
 from ivosw_tpu_torch.models.vos.tapnet import TAPNet, TAPNetAdapter
@@ -93,6 +102,7 @@ from ivosw_tpu_torch.utils.convert import (
     matchnet_state_dict_from_numpy,
     tapnet_state_dict_from_numpy,
 )
+from torch_dataset_trees import YTBVOS_DST, write_mini_davis
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EPISODE_ATOL = 0.02
@@ -108,6 +118,16 @@ AUC_ATOL = 2e-3
 # committed AUC by up to 2.6e-3 (ipnet oracle worst; the other oracle cells
 # 1.6e-5 to 4.7e-4), and single episode rounds by up to 0.136
 WALK_AUC_ATOL = 5e-3
+# committed cells whose rows the JAX package's own CPU run misses beyond
+# EPISODE_ATOL even where no pick rests on the host's numbers (ROADMAP §3):
+# the port is held to the JAX package's own run on the same walk instead,
+# and the test fails once the JAX package reproduces the cell again.
+# (vos, setting, method, dataset) → the JAX package's own gap, measured
+JAX_MISSES_COMMITTED = {
+    # dm-v0 scribble 1, round 3: object 2 is lost on the CPU, found on the
+    # TPU (episode-round mean 0.534 against 0.754; first episode 0.2193)
+    ("tapnet", "wild", "linspace", "ytbvos-demo"): 0.2193,
+}
 ROUNDS = 8
 SMOOTH = 3  # assess_net.smooth_quality of the demo's evaluation
 SCORE_CHUNK = 16  # frames per scoring block: 48 frames, no padded ones
@@ -165,15 +185,43 @@ class Picks(list):
         self.states = []
 
 
-def episodes(n):
-    reg = demo_registry(seed=0)
+# a cell's dataset → its results directory name and episode count
+DATASETS = {"synthetic": ("synthetic", 24), "ytbvos-demo": ("ytbvos-demo", 24),
+            "davis-fake": ("davis", 6)}
+
+
+def registries(dataset, tmp_path):
+    """(the port's registry, the JAX package's) of a cell's dataset: the
+    demo registry (``synthetic``), the committed YouTube-VOS demo tree read
+    by ``from_json`` (``ytbvos-demo``, ``scripts/demo_ytbvos.py``), or the
+    mini-DAVIS tree read by ``from_davis_root``
+    (``davis-fake``), written under ``tmp_path``."""
+    if dataset == "synthetic":
+        return demo_registry(seed=0), jax_demo_registry(seed=0)
+    if dataset == "ytbvos-demo":
+        path = os.path.join(YTBVOS_DST, "scb_ytbvos.json")
+        return SequenceRegistry.from_json(path), JaxRegistry.from_json(path)
+    root = write_mini_davis(str(tmp_path / "mini_davis"))
+    return SequenceRegistry.from_davis_root(root), JaxRegistry.from_davis_root(root)
+
+
+def episodes(n, registry=None):
+    reg = registry or demo_registry(seed=0)
     return [(s, i) for s in reg.subset("val") for i in range(1, reg.info(s).num_scribbles + 1)][:n]
 
 
-def cell_config(config_cls, vos, setting, method):
-    """The demo's evaluation config (scripts/demo_ordering.py base_config)."""
-    cfg = config_cls(seed=0, vos=vos, dataset="synthetic", phase="eval", setting=setting,
-                     method=method)
+def cell_config(config_cls, vos, setting, method, dataset="synthetic"):
+    """A cell's evaluation config: the demo's (scripts/demo_ordering.py and
+    scripts/demo_ytbvos.py base_config), or for ``davis-fake`` the
+    command line's (configs/config.yaml with the cell's overrides)."""
+    if dataset == "davis-fake":
+        load = load_config if config_cls is Config else jax_load_config
+        cfg = load(os.path.join(REPO, "configs", "config.yaml"),
+                   ["dataset=davis", f"vos={vos}", f"setting={setting}", f"method={method}"])
+        cfg.phase = "eval"
+        return cfg
+    cfg = config_cls(seed=0, vos=vos, dataset="ytbvos" if dataset == "ytbvos-demo" else dataset,
+                     phase="eval", setting=setting, method=method)
     cfg.assess_net.smooth_quality = SMOOTH
     cfg.assess_net.score_chunk = SCORE_CHUNK
     return cfg
@@ -196,18 +244,32 @@ class Replay:
         return labels, all_p, state
 
 
-def _policy(vos, setting, method):
+def _numpy_tree(tree):
+    return jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
+
+
+def _policy(vos, setting, method, dataset="synthetic"):
     """(port agent, port AssessNet, JAX agent, JAX assess variables) of a
-    cell; None where the cell needs none."""
+    cell; None where the cell needs none. The demo's cells use the
+    committed demo weights; ``davis-fake`` the JAX command line's seeded
+    init (no checkpoint), converted."""
     agent = assess_net = jax_agent = assess_vars = None
     if method == "ours":
-        brain = demo_weights("wild/agent.orbax" if setting == "wild" else "agent.orbax")
-        agent = Agent(cell_config(Config, vos, setting, method), seed=0, device="cpu")
+        jcfg = cell_config(JaxConfig, vos, setting, method, dataset)
+        if dataset == "davis-fake":
+            jax_agent = JaxAgent(jcfg)
+            brain = _numpy_tree(jax_agent.params)
+        else:
+            brain = demo_weights("wild/agent.orbax" if setting == "wild" else "agent.orbax")
+            jax_agent = JaxAgent(jcfg, seed=0)
+            jax_agent.params = jax.tree.map(jnp.asarray, brain)
+        agent = Agent(cell_config(Config, vos, setting, method, dataset), seed=0, device="cpu")
         agent.brain.load_state_dict(brain_state_dict_from_numpy(brain))
-        jax_agent = JaxAgent(cell_config(JaxConfig, vos, setting, method), seed=0)
-        jax_agent.params = jax.tree.map(jnp.asarray, brain)
     if setting == "wild" and method in ("ours", "worst"):
-        assess_vars = demo_weights("assess_net.orbax")
+        if dataset == "davis-fake":
+            assess_vars = _numpy_tree(jax_init_assess(jax.random.PRNGKey(0)))
+        else:
+            assess_vars = demo_weights("assess_net.orbax")
         assess_net = AssessNet(fold=True)
         assess_net.load_state_dict(
             fold_assess_variables(assess_state_dict_from_numpy(assess_vars)))
@@ -235,27 +297,35 @@ def _flips(method, picks, jpicks, same_inputs):
     return flips
 
 
-def reproduce_cell(tmp_path, monkeypatch, vos, setting, method, n, jax_backbone):
+def reproduce_cell(tmp_path, monkeypatch, vos, setting, method, n, jax_backbone,
+                   dataset="synthetic"):
     """The port's evaluate on the first n episodes of a committed cell, and
     the JAX package's evaluate on the same episodes, following the port's
     picks (with its own backbone when ``jax_backbone``, else replaying the
-    port's segmentations). Returns (the port's summary, the committed
-    summary, what was measured)."""
-    params = demo_weights(f"{vos}.orbax")
-    samples = episodes(n)
-    agent, assess_net, jax_agent, assess_vars = _policy(vos, setting, method)
+    port's segmentations). Returns what was measured."""
+    held_to_jax = (vos, setting, method, dataset) in JAX_MISSES_COMMITTED
+    jax_backbone = jax_backbone or held_to_jax
+    registry, jax_registry = registries(dataset, tmp_path)
+    samples = episodes(n, registry)
+    agent, assess_net, jax_agent, assess_vars = _policy(vos, setting, method, dataset)
     picks, qualities = recording(monkeypatch, eval_agent, recommend)
-    adapter, segmentations = port_adapter(vos, params), []
+    if vos == "fake":
+        adapter, jax_adapter = FakeVOS(registry), JaxFakeVOS(jax_registry)
+    else:
+        params = demo_weights(f"{vos}.orbax")
+        adapter = port_adapter(vos, params)
+        jax_adapter = BACKBONES[vos][3](jax.tree.map(jnp.asarray, params))
+    segmentations = []
     segment = adapter.segment
 
     def recorded(*args, **kwargs):
         labels, all_p, state = segment(*args, **kwargs)
-        segmentations.append((labels, all_p.numpy()))
+        segmentations.append((labels, np.asarray(all_p)))
         return labels, all_p, state
 
     adapter.segment = recorded
     ours = eval_agent.evaluate(
-        cell_config(Config, vos, setting, method), demo_registry(seed=0), adapter,
+        cell_config(Config, vos, setting, method, dataset), registry, adapter,
         agent=agent, assess_net=assess_net, max_nb_interactions=ROUNDS,
         report_save_dir=str(tmp_path / "port"), samples=samples, device="cpu",
     )
@@ -272,14 +342,14 @@ def reproduce_cell(tmp_path, monkeypatch, vos, setting, method, n, jax_backbone)
 
     monkeypatch.setattr(jax_eval, "recommend_frame", follow)
     theirs = jax_eval.evaluate(
-        cell_config(JaxConfig, vos, setting, method), jax_demo_registry(seed=0),
-        BACKBONES[vos][3](jax.tree.map(jnp.asarray, params)) if jax_backbone
-        else Replay(vos, segmentations),
+        cell_config(JaxConfig, vos, setting, method, dataset), jax_registry,
+        jax_adapter if jax_backbone else Replay(vos, segmentations),
         agent=jax_agent, assess_variables=assess_vars, max_nb_interactions=ROUNDS,
         report_save_dir=str(tmp_path / "jax"), samples=samples,
     )
 
-    cell = os.path.join(REPO, "results", vos, setting, "synthetic", method)
+    cell_dir, n_all = DATASETS[dataset]
+    cell = os.path.join(REPO, "results", vos, setting, cell_dir, method)
     keep = {(s, str(i)) for s, i in samples}
     ref = [r for r in csv.DictReader(open(os.path.join(cell, "session_report.csv")))
            if (r["sequence"], r["scribble_idx"]) in keep]
@@ -321,26 +391,30 @@ def reproduce_cell(tmp_path, monkeypatch, vos, setting, method, n, jax_backbone)
         measured["port_vs_jax_episode_round_max_abs_diff"] = float(
             np.abs(tables["port"] - tables["jax"]).max())
     # the numbers the test files' docstrings quote, shown with pytest -s
-    print(f"{vos} {setting}/{method} {n} episodes vs the committed cell: {measured}")
+    print(f"{vos} {setting}/{method} {dataset} {n} episodes vs the committed cell: {measured}")
     port = measured["port"]
     assert len(episode_rounds(ref)) == ROUNDS * n
     assert port["round1_max_abs_diff"] <= EPISODE_ATOL, measured
-    if method not in ("worst", "ours"):
+    if held_to_jax:
+        assert measured["jax"]["episode_round_max_abs_diff"] > EPISODE_ATOL, measured
+        assert measured["port_vs_jax_episode_round_max_abs_diff"] <= EPISODE_ATOL, measured
+        assert_summary_close(ours, theirs, AUC_ATOL, n == n_all)
+    elif method not in ("worst", "ours"):
         assert port["episode_round_max_abs_diff"] <= EPISODE_ATOL, measured
-        assert_summary_close(ours, committed, AUC_ATOL, n)
+        assert_summary_close(ours, committed, AUC_ATOL, n == n_all)
     elif jax_backbone:
         assert measured["port_vs_jax_episode_round_max_abs_diff"] <= EPISODE_ATOL, measured
-        assert_summary_close(ours, theirs, AUC_ATOL, n)
+        assert_summary_close(ours, theirs, AUC_ATOL, n == n_all)
         assert abs(ours["auc"] - committed["auc"]) <= WALK_AUC_ATOL, measured
     else:
         assert port["episode_round_max_abs_diff"] <= WALK_EPISODE_ATOL, measured
     return measured
 
 
-def assert_summary_close(ours, ref, atol, n):
-    """Over all 24 episodes: the AUC and the curve within ``atol`` of the
-    reference summary's (nothing to hold over fewer)."""
-    if n < 24:
+def assert_summary_close(ours, ref, atol, complete):
+    """Over all of a cell's episodes: the AUC and the curve within ``atol``
+    of the reference summary's (nothing to hold over fewer)."""
+    if not complete:
         return
     assert abs(ours["auc"] - ref["auc"]) <= atol
     np.testing.assert_allclose(ours["curve"]["J_AND_F"], ref["curve"]["J_AND_F"], rtol=0,
