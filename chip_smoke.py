@@ -156,11 +156,43 @@ with its own seconds:
    cold and cached load, ``seg_time_avg``, ``rec_time_avg``, the host's
    J&F and submission seconds, peak memory.
 
+The last slice's phases, run where their inputs are at hand:
+
+23. metrics_native (after build): the host J&F library
+   (``ops/metrics_native.py``) against the numpy path on seeded ragged
+   masks at the dataset slice's shape (480×854, T=48, O=3): J and F equal
+   to the last bit; both paths' ms and the library's threads;
+24. reference_weights (after slice): a seeded ``agent.pt`` and a full-width
+   ``assess_net.pt`` in the reference's layouts in a temporary
+   ``ckpt_dir``, then ``build_and_evaluate`` (FakeVOS, wild ``ours``, one
+   480×854 demo clip, T=64, O=3, 2 rounds): the loaded Brain's Q-values and
+   the folded AssessNet equal those of the direct conversion, and the
+   fused-box launches, zeroed just before and read just after, equal
+   rounds·ceil(T/32);
+25. imagenet_init (after train_assess, on its dumps): one ``train_assess``
+   epoch with ``assess_net.imagenet_ckpt`` a seeded torchvision-layout
+   ``resnet50``: before the first step the stem and trunk equal the
+   file's and ``conv1_p`` is zero; one crop launch a batch, finite losses;
+26. parallel (after vos_train_dp): the mesh ``[cuda:0, cuda:0]``:
+   ``frame_sharded_score_clip`` on the TAPNet slice's last maps (T=64 and a
+   ragged T=63) equal to one device over the same slabs (bound 2e-2, the
+   JAX test's) and within the bf16 scoring bound of the whole-clip pass,
+   two launches; ``predict_clip_quality`` over the mesh (chunks × shards
+   launches); ``evaluate_dp`` of one clip's 3 scribbles (FakeVOS, wild
+   ``worst`` and ``ours`` with the slice's seeded agent, the BN-folded
+   full-width AssessNet, 2 rounds) against ``evaluate``: the curve within
+   1e-12, the same picks, each shard thread's fused-box launches, the
+   caller's agent unchanged; a 2-way data-parallel TAPNet
+   ``train_vos.run`` (``dp_windows=2``, 3 steps) against vos_train_dp's
+   one-device run within phase 19's bounds; ``build_and_evaluate`` with
+   ``eval_sp_shards=2`` raises ``ValueError`` on one card.
+
 Then it prints the kernel table (one JSON object; each kernel's launches
 are those of its path's run: the TAPNet slice for the fused-box kernel
-(the FakeVOS slice's, the agent rollout's, the MatchNet and IPNet slices'
-and the dataset slice's under keys of their own), the
-training run for the crop kernel, the two-stage round for the pair kernel;
+(the FakeVOS slice's, the agent rollout's, the MatchNet and IPNet slices',
+the dataset slice's, the reference_weights and parallel phases' under keys
+of their own), the training run for the crop kernel (imagenet_init's under
+its own key), the two-stage round for the pair kernel;
 the matrix crop is on no path; the fused-box, crop and pair kernels' rows
 also carry ``device_ms`` and ``bound_share``), the card's name and power limit as
 nvidia-smi gives them, and, last, the result line
@@ -275,13 +307,14 @@ VOS_PROFILE_STEPS = 3
 VOS_DP_STEPS = 3
 # dataset_slice: one demo clip at 480×854 with the demo's shortest length
 # (48 frames), written as q95 JPEGs, evaluated for DATASET_ROUNDS rounds per
-# episode: cut from 3, since with seeded TAPNet's ragged masks the host's
-# J&F and the session's submission (J&F rows, robot) took ~25 s a round on
-# the card's machine, and the phase 319 s with 3; the SHA-256 of its first
-# two frames as PIL decodes the encoder's bytes (tests/test_torch_jpeg.py
-# recomputes it on the CPU)
+# episode (the numpy J&F had forced 2: with seeded TAPNet's ragged masks the
+# host's J&F and the session's submission took ~25 s a round on the card's
+# machine; 3 rounds fit with the host J&F library, which the metrics_native
+# phase times against the numpy J&F on the same masks);
+# the SHA-256 of its first two frames as PIL decodes the encoder's bytes
+# (tests/test_torch_jpeg.py recomputes it on the CPU)
 DATASET_FRAMES = 48
-DATASET_ROUNDS = 2
+DATASET_ROUNDS = 3
 DATASET_QUALITY = 95
 DATASET_DIGEST = "ec543dc3a28045bedd19004effaf2b4060da7c3606f05e92786ffed7f5755f76"
 
@@ -906,8 +939,9 @@ def phase_train(torch, dev, kinfo):
     return launches
 
 
-def phase_train_assess(torch, dev):
-    """generate_qa_data → one train_assess epoch at 480×854, batch 32."""
+def phase_train_assess(torch, dev, kinfo):
+    """generate_qa_data → one train_assess epoch at 480×854, batch 32; then
+    the imagenet_init phase on the same dumps."""
     import numpy as np
 
     from ivosw_tpu_torch.core.config import Config
@@ -949,15 +983,16 @@ def phase_train_assess(torch, dev):
         finally:
             train_assess.assess_train_step = orig_step
         saved = os.path.exists(os.path.join(cfg.ckpt_dir, train_assess.ASSESS_CKPT))
-    n_batches = stats["dumped_prob_maps"] // B_TRAIN
-    if stats["dumped_prob_maps"] != 32 or launches != n_batches or len(losses) != n_batches:
-        raise AssertionError(f"{stats['dumped_prob_maps']} prob maps, {launches} launches, "
-                             f"{len(losses)} steps; expected 32 maps and {n_batches} of each")
-    if not np.isfinite(losses).all() or not saved:
-        raise AssertionError(f"losses {losses}, assess_net.pt written: {saved}")
-    log_phase("train_assess", tic, generate_seconds=gen_s,
-              dumped_prob_maps=stats["dumped_prob_maps"], batches=n_batches,
-              launches=launches, losses=losses)
+        n_batches = stats["dumped_prob_maps"] // B_TRAIN
+        if stats["dumped_prob_maps"] != 32 or launches != n_batches or len(losses) != n_batches:
+            raise AssertionError(f"{stats['dumped_prob_maps']} prob maps, {launches} launches, "
+                                 f"{len(losses)} steps; expected 32 maps and {n_batches} of each")
+        if not np.isfinite(losses).all() or not saved:
+            raise AssertionError(f"losses {losses}, assess_net.pt written: {saved}")
+        log_phase("train_assess", tic, generate_seconds=gen_s,
+                  dumped_prob_maps=stats["dumped_prob_maps"], batches=n_batches,
+                  launches=launches, losses=losses)
+        return phase_imagenet_init(torch, dev, kinfo, registry, os.path.join(work, "qa"), work)
 
 
 def pair_case(torch, dev, T, inputs):
@@ -1932,6 +1967,430 @@ def phase_vos_train_dp(torch, dev):
         raise AssertionError(f"dp_windows=2 run: losses {out['losses']}")
     log_phase("vos_train_dp", tic, dp_windows=2, steps=VOS_DP_STEPS, losses=out["losses"],
               step_ms=[x * 1e3 for x in timings["step_s"]])
+    return out
+
+
+def ragged_masks(rng, t, h, w, o):
+    """Seeded label masks of o objects: a rectangle per object with an
+    eighth of its pixels dropped, as a seeded backbone's ragged output."""
+    import numpy as np
+
+    out = np.zeros((t, h, w), np.int32)
+    for ti in range(t):
+        for obj in range(1, o + 1):
+            y0, x0 = rng.integers(0, h - 8), rng.integers(0, w - 8)
+            y1, x1 = y0 + rng.integers(4, h // 2), x0 + rng.integers(4, w // 2)
+            region = out[ti, y0:y1, x0:x1]
+            region[rng.random(region.shape) < 0.875] = obj
+    return out
+
+
+def phase_metrics_native(torch, dev, kinfo):
+    """The host J&F library against its numpy path at the dataset slice's
+    shape: exact equality, both paths' ms, the library's threads."""
+    import numpy as np
+
+    from ivosw_tpu_torch.ops import metrics, metrics_native
+
+    tic = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    gt = ragged_masks(rng, DATASET_FRAMES, H, W, O)
+    pred = ragged_masks(rng, DATASET_FRAMES, H, W, O)
+    out, ms = {}, {}
+    for fn in ("batched_jaccard", "batched_f_measure"):
+        for backend in ("native", "numpy"):
+            t0 = time.perf_counter()
+            out[fn, backend] = getattr(metrics, fn)(gt, pred, False, O, backend=backend)
+            ms[f"{fn}_{backend}"] = (time.perf_counter() - t0) * 1e3
+    diffs = {fn: float(np.max(np.abs(out[fn, "native"] - out[fn, "numpy"])))
+             for fn in ("batched_jaccard", "batched_f_measure")}
+    if any(d != 0.0 for d in diffs.values()):
+        raise AssertionError(f"native J&F differs from the numpy path: {diffs}")
+    log_phase("metrics_native", tic, frames=DATASET_FRAMES, height=H, width=W, objects=O,
+              max_abs_diff=diffs, ms=ms, threads=metrics_native.native_num_threads(),
+              host_cpus=os.cpu_count(), card=kinfo["name"], power_limit=kinfo["power_limit"])
+
+
+def reference_layout(state, kind):
+    """The port's state dict renamed into the layout the reference saves
+    (``brain``: its agent.pt, with the LSTM cell's biases; ``assess``: its
+    assess_net.pt, with the dead conv1_m/conv1_n stems, BatchNorm counters
+    and the mean/std buffers) or torchvision's ``resnet50`` (``resnet50``,
+    with the 1000-class head)."""
+    import re
+
+    import torch
+
+    g = torch.Generator().manual_seed(SEED)
+    out = {}
+    if kind == "brain":
+        names = {"enc_fc1": "encoder_fc1", "enc_fc2": "encoder_fc2", "lstm": "lstm_cell",
+                 "dec_fc1": "decoder_fc1", "dec_fc2": "decoder_fc2"}
+        for key, v in state.items():
+            head, _, rest = key.partition(".")
+            out[f"{names[head]}.{rest}"] = v.clone()
+        for name in ("bias_ih", "bias_hh"):
+            out[f"lstm_cell.{name}"] = torch.randn(512, generator=g) * 0.1
+        return out
+    stem = "Encoder." if kind == "assess" else ""
+    for key, v in state.items():
+        m = re.fullmatch(r"trunk\.res(\d)\.block(\d+)\.(.*)", key)
+        if m:
+            rest = m.group(3).replace("downsample_conv", "downsample.0")
+            rest = rest.replace("downsample_bn", "downsample.1")
+            stage = int(m.group(1))
+            prefix = f"Encoder.res{stage}." if kind == "assess" else f"layer{stage - 1}."
+            key = f"{prefix}{m.group(2)}.{rest}"
+        elif key.startswith("fc1."):
+            key = key if kind == "assess" else None
+        elif kind == "resnet50" and key.startswith("conv1_p."):
+            key = None
+        else:
+            key = stem + key
+        if key is not None:
+            out[key] = v.clone()
+        if key and key.endswith("running_var"):
+            out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(100)
+    if kind == "assess":
+        for dead in ("conv1_m", "conv1_n"):
+            out[f"Encoder.{dead}.weight"] = torch.randn(64, 1, 7, 7, generator=g) * 0.05
+        out["Encoder.mean"] = torch.tensor([0.485, 0.456, 0.406]).view(1, 3, 1, 1)
+        out["Encoder.std"] = torch.tensor([0.229, 0.224, 0.225]).view(1, 3, 1, 1)
+    else:
+        out["fc.weight"] = torch.randn(1000, 2048, generator=g) * 0.01
+        out["fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def randomise_bn(state, seed):
+    """BatchNorm statistics and affines drawn away from identity, so that a
+    converted file's values show in the scores and the fold."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    for key, v in state.items():
+        if key.endswith(("running_var", "bn1.weight", "bn2.weight", "bn3.weight")):
+            state[key] = 0.5 + torch.rand(v.shape, generator=g)
+        elif key.endswith(("running_mean", "bn1.bias", "bn2.bias", "bn3.bias")):
+            state[key] = 0.4 * torch.rand(v.shape, generator=g) - 0.2
+    return state
+
+
+def one_clip_registry(frames, scribbles=1, subset="val"):
+    """One 480×854 demo clip of ``frames`` frames and O objects, listed in
+    ``subset`` with ``scribbles`` scribble files."""
+    from ivosw_tpu_torch.data.demo import DemoSpec, demo_training_registry
+
+    spec = DemoSpec(h=H, w=W, num_frames=frames, num_objects=O, blob=BLOB)
+    registry = demo_training_registry(n_clips=1, seed=SEED, spec=spec)
+    for info in registry.sequences.values():
+        info.set, info.num_scribbles = subset, scribbles
+    return registry
+
+
+def phase_reference_weights(torch, dev, kinfo):
+    """``build_and_evaluate`` with the reference's released-layout files in
+    ``ckpt_dir``: a seeded ``agent.pt`` and a full-width ``assess_net.pt``
+    (FakeVOS, wild ``ours``, one 480×854 demo clip, T=64, O=3, 2 rounds)."""
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.data import registry as registry_module
+    from ivosw_tpu_torch.eval import eval_agent
+    from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop_pairs_fusedbox
+    from ivosw_tpu_torch.models.agent import Agent
+    from ivosw_tpu_torch.models.assess import init_assess_net
+    from ivosw_tpu_torch.models.brain import init_brain
+    from ivosw_tpu_torch.models.fold import fold_assess_variables
+    from ivosw_tpu_torch.utils import torch_import
+
+    tic = time.perf_counter()
+    rounds = 2
+    registry = one_clip_registry(T_CLIP)
+    brain_file = reference_layout(init_brain(SEED + 1).state_dict(), "brain")
+    assess_file = reference_layout(randomise_bn(init_assess_net(SEED + 1).state_dict(), SEED),
+                                   "assess")
+    seen = {}
+    evaluate = eval_agent.evaluate
+
+    def captured(*args, **kwargs):
+        seen.update(kwargs)
+        return evaluate(*args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(brain_file, os.path.join(tmp, "agent.pt"))
+        torch.save(assess_file, os.path.join(tmp, "assess_net.pt"))
+        cfg = Config(phase="eval", setting="wild", method="ours", vos="fake", seed=SEED,
+                     eval_rounds=rounds, ckpt_dir=tmp)
+        cwd, from_config = os.getcwd(), registry_module.registry_from_config
+        os.chdir(tmp)  # the summary goes to results/ under the cwd
+        eval_agent.evaluate = captured
+        registry_module.registry_from_config = lambda _cfg: registry
+        try:
+            torch.cuda.synchronize()
+            roi_crop_pairs_fusedbox.launches = 0
+            t0 = time.perf_counter()
+            summary = eval_agent.build_and_evaluate(cfg, device=dev)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            launches = roi_crop_pairs_fusedbox.launches
+        finally:
+            eval_agent.evaluate, registry_module.registry_from_config = evaluate, from_config
+            os.chdir(cwd)
+
+    # the loaded Brain answers as the directly converted state dict
+    direct = Agent(cfg, seed=SEED, device=dev)
+    direct.brain.load_state_dict(torch_import.brain_state_dict_from_reference(brain_file))
+    state = np.stack([np.random.default_rng(SEED).random(T_CLIP), np.zeros(T_CLIP)], 1)
+    q_loaded, q_direct = seen["agent"].q_values(state), direct.q_values(state)
+    folded = fold_assess_variables(torch_import.assess_state_dict_from_reference(assess_file))
+    net_err = max(float((v.cpu() - folded[k]).abs().max())
+                  for k, v in seen["assess_net"].state_dict().items())
+    expected = rounds * math.ceil(T_CLIP / FRAME_CHUNK)
+    curve = summary["curve"]["J_AND_F"]
+    if not np.array_equal(q_loaded, q_direct) or net_err != 0.0:
+        raise AssertionError(f"loaded weights differ: Q {np.abs(q_loaded - q_direct).max()}, "
+                             f"folded AssessNet {net_err}")
+    if launches != expected:
+        raise AssertionError(f"fused-box kernel launched {launches}x, expected {expected}")
+    if len(curve) != rounds or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in curve):
+        raise AssertionError(f"J&F curve {curve} malformed for {rounds} rounds")
+    log_phase("reference_weights", tic, rounds=rounds, launches=launches,
+              expected_launches=expected, curve=curve, q_values_max_abs_diff=0.0,
+              folded_assess_max_abs_diff=net_err, eval_seconds=eval_s,
+              rec_time_avg_s=summary["timing"]["rec_time_avg"],
+              seg_time_avg_s=summary["timing"]["seg_time_avg"],
+              card=kinfo["name"], power_limit=kinfo["power_limit"])
+    return launches
+
+
+def phase_imagenet_init(torch, dev, kinfo, registry, qa_dir, work):
+    """One ``train_assess.run`` epoch on the train_assess phase's dumps with
+    ``assess_net.imagenet_ckpt`` a seeded torchvision-layout ``resnet50``:
+    the trunk before the first step is the file's, one crop launch a batch,
+    finite losses."""
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.kernels.roi_crop import roi_crop
+    from ivosw_tpu_torch.models.assess import init_assess_net
+    from ivosw_tpu_torch.train import train_assess
+
+    tic = time.perf_counter()
+    base = randomise_bn(init_assess_net(SEED + 2).state_dict(), SEED + 2)
+    path = os.path.join(work, "resnet50.pth")
+    torch.save(reference_layout(base, "resnet50"), path)
+    cfg = Config(dataset="demo", seed=SEED, ckpt_dir=os.path.join(work, "weights_imagenet"))
+    cfg.assess_net.train_batch_size = B_TRAIN
+    cfg.assess_net.imagenet_ckpt = path
+    losses, start_err = [], {}
+    orig_step = train_assess.assess_train_step
+
+    def first_checked(net, *args, **kwargs):
+        if not losses:  # the net the first step gets: the file's stem and trunk
+            sd = net.state_dict()
+            start_err["stem_and_trunk"] = max(float((sd[k].cpu() - base[k]).abs().max())
+                                              for k in sd if k.startswith(("conv1.", "bn1.",
+                                                                           "trunk.")))
+            start_err["conv1_p"] = float(sd["conv1_p.weight"].abs().max())
+        out = orig_step(net, *args, **kwargs)
+        losses.append(float(out[0]))
+        return out
+
+    train_assess.assess_train_step = first_checked
+    try:
+        roi_crop.launches = 0
+        train_assess.run(cfg, registry=registry, save_result_dir=qa_dir, num_epochs=1,
+                         log=logging.getLogger("chip_smoke.train_assess"), device=dev)
+        launches = roi_crop.launches
+    finally:
+        train_assess.assess_train_step = orig_step
+    if start_err != {"stem_and_trunk": 0.0, "conv1_p": 0.0}:
+        raise AssertionError(f"net before the first step differs from the file: {start_err}")
+    if not losses or launches != len(losses) or not np.isfinite(losses).all():
+        raise AssertionError(f"{len(losses)} steps, {launches} crop launches, losses {losses}")
+    log_phase("imagenet_init", tic, batches=len(losses), launches=launches, losses=losses,
+              start_max_abs_err=start_err, card=kinfo["name"],
+              power_limit=kinfo["power_limit"])
+    return launches
+
+
+def phase_parallel(torch, dev, kinfo, frames, all_p, assess_net, agent, dp_run):
+    """The mesh layer on the one card, as ``[cuda:0, cuda:0]``: sequence-
+    parallel scoring of the TAPNet slice's last maps (T=64 and a ragged
+    T=63), ``evaluate_dp`` (``worst`` and ``ours``) against ``evaluate``, a
+    2-way data-parallel
+    TAPNet ``train_vos.run`` against the one-device ``dp_windows=2`` run
+    (phase vos_train_dp's), and the SP guard of ``build_and_evaluate``."""
+    import threading
+
+    import numpy as np
+
+    from ivosw_tpu_torch.core.config import Config
+    from ivosw_tpu_torch.data.demo import HD_SPEC, demo_training_registry
+    from ivosw_tpu_torch.eval import eval_agent
+    from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK, predict_clip_quality
+    from ivosw_tpu_torch.interact.session import InteractiveSession
+    from ivosw_tpu_torch.kernels import roi_crop
+    from ivosw_tpu_torch.models.assess import score_clip
+    from ivosw_tpu_torch.models.vos.fake import FakeVOS
+    from ivosw_tpu_torch.parallel.mesh import frame_sharded_score_clip, make_mesh
+    from ivosw_tpu_torch.train import train_vos as tv
+
+    tic = time.perf_counter()
+    mesh = make_mesh(devices=[dev, dev])
+    fused = roi_crop.roi_crop_pairs_fusedbox
+    ones = torch.ones(O, device=dev)
+    report = {}
+
+    # sequence parallelism, one launch per slab. Held to the one-device pass
+    # over the same slabs (the JAX test's 2e-2; the same shapes on the same
+    # card give the same sums) and, within the bf16 scoring bound, to the
+    # one-device pass over the whole clip: cuDNN picks its algorithms by
+    # batch size, so other batches round differently
+    sp = {}
+    for t in (T_CLIP, T_CLIP - 1):
+        pad = t % 2
+        padded = [torch.cat([x[:t], x[:pad].new_zeros((pad,) + x.shape[1:])])
+                  for x in (frames, all_p)]
+        same_slabs = score_clip(assess_net, *padded, ones, chunk=(t + pad) // 2,
+                                obj_offset=1)[:t]
+        whole = score_clip(assess_net, frames[:t], all_p[:t], ones, obj_offset=1)
+        fused.launches = 0
+        got = frame_sharded_score_clip(mesh, assess_net, frames[:t], all_p[:t], ones,
+                                       obj_offset=1)
+        launches = fused.launches
+        sp[f"T{t}"] = case = {
+            "max_abs_diff_same_slabs": float((got - same_slabs).abs().max()),
+            "max_abs_diff_whole_clip": float((got - whole).abs().max()),
+            "largest_score": float(whole.abs().max()), "launches": launches}
+        if (got.shape != (t, O) or not case["max_abs_diff_same_slabs"] <= 2e-2 or launches != 2
+                or not case["max_abs_diff_whole_clip"]
+                <= SCORE_ATOL * max(1.0, case["largest_score"])):
+            raise AssertionError(f"SP scores T={t}: shape {tuple(got.shape)}, {case} (bounds "
+                                 f"2e-2 and {SCORE_ATOL}·max(1, largest score); 2 launches)")
+    # through predict_clip_quality: each 32-frame chunk over the two devices
+    # (chunks × shards launches), against 16-frame chunks on one device
+    q_slabs, _ = predict_clip_quality(assess_net, frames, all_p, O, chunk=FRAME_CHUNK // 2)
+    q_chunks, _ = predict_clip_quality(assess_net, frames, all_p, O)
+    fused.launches = 0
+    q_sp, _ = predict_clip_quality(assess_net, frames, all_p, O, mesh=mesh)
+    chunks = math.ceil(T_CLIP / FRAME_CHUNK)
+    sp["predict_clip_quality"] = case = {
+        "max_abs_diff_same_slabs": float(np.abs(q_sp - q_slabs).max()),
+        "max_abs_diff_one_device": float(np.abs(q_sp - q_chunks).max()),
+        "largest_quality": float(np.abs(q_chunks).max()),
+        "launches": fused.launches, "expected": chunks * 2}
+    if (fused.launches != chunks * 2 or not case["max_abs_diff_same_slabs"] <= 2e-2
+            or not case["max_abs_diff_one_device"]
+            <= SCORE_ATOL * max(1.0, case["largest_quality"])):
+        raise AssertionError(f"SP predict_clip_quality: {case}")
+    report["sequence_parallel"] = sp
+
+    # data-parallel evaluation: every scribble of one clip, the picks and
+    # each shard thread's fused-box launches recorded; ``worst`` and the
+    # paper's ``ours`` (the slice's seeded agent, which each shard copies:
+    # the caller's agent keeps its step count and RNG)
+    registry = one_clip_registry(T_CLIP, scribbles=3)
+    rounds, per_sample = 2, 2 * math.ceil(T_CLIP / FRAME_CHUNK)
+    submit, count = InteractiveSession.submit_masks, roi_crop._count_launch
+    log = logging.getLogger("chip_smoke.eval")
+    report["evaluate_dp"], shard_launches = {}, {}
+    for method, dp_agent in (("worst", None), ("ours", agent)):
+        cfg = Config(phase="eval", setting="wild", method=method, vos="fake", seed=SEED)
+        picks, by_thread = {}, {}
+
+        def recording(self, masks, next_scribble_frame_candidates=None, **kw):
+            shard = threading.current_thread() is not threading.main_thread()
+            picks.setdefault((shard, *self.current_sample), []).append(
+                next_scribble_frame_candidates)
+            return submit(self, masks,
+                          next_scribble_frame_candidates=next_scribble_frame_candidates, **kw)
+
+        def counted(wrapper):
+            count(wrapper)
+            if wrapper is fused:
+                name = threading.current_thread().name
+                by_thread[name] = by_thread.get(name, 0) + 1
+
+        InteractiveSession.submit_masks, roi_crop._count_launch = recording, counted
+        try:
+            with tempfile.TemporaryDirectory() as out:
+                t0 = time.perf_counter()
+                single = eval_agent.evaluate(cfg, registry, FakeVOS(registry), agent=dp_agent,
+                                             assess_net=assess_net, max_nb_interactions=rounds,
+                                             device=dev, log=log,
+                                             report_save_dir=os.path.join(out, "one"))
+                single_s = time.perf_counter() - t0
+                single_launches, by_thread = by_thread.get("MainThread", 0), {}
+                agent_state = dp_agent and (dp_agent.steps_done,
+                                            dp_agent.host_rng.bit_generator.state)
+                t0 = time.perf_counter()
+                sharded = eval_agent.evaluate_dp(cfg, registry, lambda d: FakeVOS(registry),
+                                                 devices=[dev, dev], agent=dp_agent,
+                                                 assess_net=assess_net,
+                                                 max_nb_interactions=rounds, log=log,
+                                                 report_save_dir=os.path.join(out, "dp"))
+                dp_s = time.perf_counter() - t0
+        finally:
+            InteractiveSession.submit_masks, roi_crop._count_launch = submit, count
+        curve_err = float(np.max(np.abs(np.subtract(sharded["curve"]["J_AND_F"],
+                                                    single["curve"]["J_AND_F"]))))
+        one = {k[1:]: v for k, v in picks.items() if not k[0]}
+        dp = {k[1:]: v for k, v in picks.items() if k[0]}
+        launches = sorted(by_thread.values())
+        if not curve_err <= 1e-12 or one != dp or len(one) != 3:
+            raise AssertionError(f"evaluate_dp {method}: curve diff {curve_err}, picks {dp} "
+                                 f"vs {one}")
+        if launches != [per_sample, 2 * per_sample] or single_launches != 3 * per_sample:
+            raise AssertionError(f"evaluate_dp {method}: fused-box launches per shard "
+                                 f"{by_thread}, one device {single_launches}; expected "
+                                 f"{per_sample} a sample")
+        if dp_agent is not None and agent_state != (dp_agent.steps_done,
+                                                    dp_agent.host_rng.bit_generator.state):
+            raise AssertionError("evaluate_dp ours: the shards wrote the caller's agent")
+        shard_launches[method] = by_thread
+        report["evaluate_dp"][method] = {
+            "curve": sharded["curve"]["J_AND_F"], "curve_max_abs_diff": curve_err,
+            "picks": {f"{s}:{i}": v for (s, i), v in dp.items()},
+            "shard_launches": by_thread, "one_device_launches": single_launches,
+            "seconds": dp_s, "one_device_seconds": single_s}
+
+    # data-parallel VOS training: 2 windows a step over the two mesh devices
+    registry = demo_training_registry(n_clips=VOS_TRAIN_CLIPS, seed=1, spec=HD_SPEC)
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        out = tv.run(Config(seed=SEED, vos="tapnet", ckpt_dir=ckpt), registry=registry,
+                     num_steps=VOS_DP_STEPS, window=VOS_TRAIN_WINDOW, lr=VOS_TRAIN_LR,
+                     save_every=VOS_DP_STEPS, dp_windows=2, mesh=mesh,
+                     log=logging.getLogger("vos_train"))
+        train_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], dp_run["losses"]))
+    far, total, param_err = 0, 0, 0.0
+    for k, p in dp_run["params"].items():
+        diff = (out["params"][k].float() - p.float()).abs()
+        param_err = max(param_err, float(diff.max()))
+        far += int((diff > VOS_TRAIN_LR / 100).sum())
+        total += diff.numel()
+    if not (loss_err <= VOS_STEP_LOSS_RTOL and param_err <= 2 * VOS_TRAIN_LR * VOS_DP_STEPS
+            and far / total <= VOS_STEP_FLIP_SHARE):
+        raise AssertionError(f"2-way DP run vs one device: losses {out['losses']} vs "
+                             f"{dp_run['losses']}, params max {param_err}, far share "
+                             f"{far / total}")
+    report["train_vos_dp"] = {"losses": out["losses"], "one_device_losses": dp_run["losses"],
+                              "loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+                              "param_far_share": far / total, "seconds": train_s}
+
+    # sequence parallelism over more cards than the machine has is refused up front
+    try:
+        eval_agent.build_and_evaluate(Config(vos="fake", eval_sp_shards=2), device=dev)
+    except ValueError as exc:
+        report["sp_guard"] = str(exc)
+    else:
+        raise AssertionError("build_and_evaluate(eval_sp_shards=2) ran on one card")
+    log_phase("parallel", tic, **report, card=kinfo["name"], power_limit=kinfo["power_limit"])
+    return sp["predict_clip_quality"]["launches"], shard_launches
 
 
 def write_ytbvos_source(src, scb, name, frames, anns, num_scribbles):
@@ -2379,7 +2838,10 @@ def main() -> int:
     from ivosw_tpu_torch.kernels import _build
 
     libs = _build.build_all()
-    log_phase("build", tic, libraries=sorted(p.name for p in libs.values()))
+    host_lib = _build.build_host("metrics")
+    log_phase("build", tic, libraries=sorted(p.name for p in libs.values()),
+              host_libraries=[host_lib.name])
+    phase_metrics_native(torch, dev, kinfo)
 
     from ivosw_tpu_torch.interact.recommend import FRAME_CHUNK
 
@@ -2387,10 +2849,11 @@ def main() -> int:
     phase_kernel(torch, dev, kinfo, T_CLIP)
     phase_small(torch, dev)
     fake_launches = phase_slice(torch, dev, kinfo)
+    reference_launches = phase_reference_weights(torch, dev, kinfo)
     crop_stats = phase_kernel_roi_crop(torch, dev, kinfo)
     phase_train_small(torch, dev)
     crop_launches = phase_train(torch, dev, kinfo)
-    phase_train_assess(torch, dev)
+    imagenet_launches = phase_train_assess(torch, dev, kinfo)
     stats = phase_kernel(torch, dev, kinfo, FRAME_CHUNK, torch.bfloat16)
     pair_stats = phase_kernel_roi_crop_pairs(torch, dev, kinfo, FRAME_CHUNK)
     premat_stats = phase_kernel_roi_crop_pairs_premat(torch, dev, kinfo, FRAME_CHUNK)
@@ -2406,7 +2869,9 @@ def main() -> int:
         phase_vos_train_small(torch, dev, vos)
     for vos in ("tapnet", "matchnet", "ipnet"):
         phase_vos_train(torch, dev, kinfo, vos)
-    phase_vos_train_dp(torch, dev)
+    dp_run = phase_vos_train_dp(torch, dev)
+    sp_launches, shard_launches = phase_parallel(torch, dev, kinfo, frames, all_p, assess_net,
+                                                 agent, dp_run)
     dataset_launches = phase_dataset_slice(torch, dev, kinfo)
 
     def row(name, source, replaces, launches, st, bound_by, path):
@@ -2426,9 +2891,17 @@ def main() -> int:
         fused[f"{vos}_slice"] = {"launches": n, "path": f"{vos}_slice (bf16 inputs)"}
     fused["dataset_slice"] = {"launches": dataset_launches,
                               "path": "dataset_slice (build_and_evaluate over a ytbvos tree)"}
+    fused["reference_weights"] = {
+        "launches": reference_launches,
+        "path": "reference_weights (build_and_evaluate with reference-layout files)"}
+    fused["parallel"] = {"launches": sp_launches, "evaluate_dp_shard_launches": shard_launches,
+                         "path": "parallel (predict_clip_quality over a 2-way mesh)"}
+    crop = row("roi_crop", "roi_crop.cu", 67, crop_launches, crop_stats, "bytes", "train")
+    crop["imagenet_init"] = {"launches": imagenet_launches,
+                             "path": "imagenet_init (train_assess from a resnet50 file)"}
     kernels = [
         fused,
-        row("roi_crop", "roi_crop.cu", 67, crop_launches, crop_stats, "bytes", "train"),
+        crop,
         row("roi_crop_pairs", "roi_crop_pairs.cu", 299, pair_launches, pair_stats,
             pair_stats["bound_by"], "two_stage"),
         row("roi_crop_pairs_premat", "roi_crop_pairs_premat.cu", 584, 0, premat_stats,

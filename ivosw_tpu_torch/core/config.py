@@ -122,11 +122,11 @@ class Config:
     # (eval_agent_atnet.py:61) while davis_interactive.max_nb_interactions
     # governs training — kept separate here for the same reason
     eval_rounds: int = 8
-    # eval_dp_shards / eval_sp_shards: >1 is refused by the port until the
-    # parallelism slice lands (eval/eval_agent.py).
     # >1: data-parallel eval sweep — sequences shard round-robin over this
-    # many devices (evaluate_dp); the merged curve equals the single-device
-    # one (no reference equivalent: it is strictly single-GPU)
+    # many devices (evaluate_dp: one thread per shard, up to the CUDA
+    # devices present; copies of the CPU for a run on the CPU); the merged
+    # curve equals the single-device one (no reference equivalent: it is
+    # strictly single-GPU)
     eval_dp_shards: int = 1
     # >1: sequence-parallel wild scoring — every AssessNet scoring chunk has
     # its FRAME axis sharded over this many devices

@@ -3,7 +3,9 @@
 The QA dump trees hold one 8-bit greyscale PNG per (round, object, frame)
 prob map, and DAVIS and YouTube-VOS annotations are palette PNGs. The JAX
 package writes and reads them with PIL, which the port does not use.
-:func:`write_gray8` writes filter type 0 (None) on every row;
+:func:`write_gray8`, :func:`write_rgb8` and :func:`write_palette8` (the
+overlays and label masks of ``utils/visualize.py``) write filter type 0
+(None) on every row;
 :func:`read_gray8` reads any non-interlaced 8-bit greyscale PNG and
 :func:`read_indexed` any non-interlaced palette PNG at bit depth 1, 2, 4 or
 8; both undo all five filter types, since PIL's encoder picks a filter per
@@ -25,19 +27,47 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
+def _write(path: str, image: np.ndarray, color_type: int, extra: bytes = b"") -> None:
+    """Rows of uint8 samples ([H, W] or [H, W, 3]) under colour type
+    ``color_type``, with ``extra`` chunks (PLTE) before the data."""
+    h, w = image.shape[:2]
+    flat = image.reshape(h, -1)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), flat], axis=1)  # filter byte 0
+    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    with open(path, "wb") as fp:
+        fp.write(_SIGNATURE)
+        fp.write(_chunk(b"IHDR", header))
+        fp.write(extra)
+        fp.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        fp.write(_chunk(b"IEND", b""))
+
+
 def write_gray8(path: str, image: np.ndarray) -> None:
     """Write a [H, W] uint8 array as an 8-bit greyscale PNG."""
     image = np.asarray(image)
     if image.dtype != np.uint8 or image.ndim != 2:
         raise ValueError(f"need a [H, W] uint8 array, got {image.dtype} {image.shape}")
-    h, w = image.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), image], axis=1)  # filter byte 0
-    header = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
-    with open(path, "wb") as fp:
-        fp.write(_SIGNATURE)
-        fp.write(_chunk(b"IHDR", header))
-        fp.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        fp.write(_chunk(b"IEND", b""))
+    _write(path, image, 0)
+
+
+def write_rgb8(path: str, image: np.ndarray) -> None:
+    """Write a [H, W, 3] uint8 array as an 8-bit RGB PNG."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"need a [H, W, 3] uint8 array, got {image.dtype} {image.shape}")
+    _write(path, image, 2)
+
+
+def write_palette8(path: str, labels: np.ndarray, palette: np.ndarray) -> None:
+    """Write [H, W] uint8 palette indices as an 8-bit palette PNG whose
+    PLTE holds ``palette`` ([N, 3] uint8, N ≤ 256)."""
+    labels = np.asarray(labels)
+    palette = np.asarray(palette, dtype=np.uint8)
+    if labels.dtype != np.uint8 or labels.ndim != 2:
+        raise ValueError(f"need [H, W] uint8 indices, got {labels.dtype} {labels.shape}")
+    if palette.ndim != 2 or palette.shape[1] != 3 or not 1 <= len(palette) <= 256:
+        raise ValueError(f"need an [N, 3] palette with N ≤ 256, got {palette.shape}")
+    _write(path, labels, 3, _chunk(b"PLTE", palette.tobytes()))
 
 
 def _unfilter(raw: np.ndarray) -> np.ndarray:

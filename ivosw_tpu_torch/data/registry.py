@@ -126,12 +126,10 @@ class SequenceRegistry:
     def from_davis_root(cls, root: str, num_scribbles: int = 3) -> "SequenceRegistry":
         """Scan a DAVIS-layout tree (ImageSets/2017/{train,val}.txt). The
         image size comes from the first frame's JPEG header alone. A root
-        with neither split file raises ``FileNotFoundError`` (the JAX
-        package returns an empty registry there)."""
+        with neither split file gives an empty registry, as in the JAX
+        package."""
         reg = cls(root=root)
         sets_dir = os.path.join(root, "ImageSets", "2017")
-        if not any(os.path.exists(os.path.join(sets_dir, f"{s}.txt")) for s in ("train", "val")):
-            raise FileNotFoundError(f"{sets_dir}: no train.txt or val.txt (not a DAVIS tree)")
         for split in ("train", "val"):
             split_file = os.path.join(sets_dir, f"{split}.txt")
             if not os.path.exists(split_file):

@@ -13,12 +13,17 @@ assess_net.bf16_inputs=true``; it runs on CUDA unless ``--cpu`` is given. Weight
 ``assess_net.pt`` and the backbone's ``tapnet.pt``, ``matchnet.pt`` or
 ``ipnet.pt`` in ``ckpt_dir`` (torch state dicts of ``Brain``, of an
 unfolded ``AssessNet`` and of ``TAPNet``, ``MatchNet`` or ``IPNet``) when
-present, else seeded random weights. The
-data-parallel sweep (``evaluate_dp``) comes with the parallelism slice.
+present, else seeded random weights; ``agent.pt`` and ``assess_net.pt`` may
+also be the reference's released files (its own layout, converted by
+:mod:`ivosw_tpu_torch.utils.torch_import`). ``eval_dp_shards`` > 1 runs
+the data-parallel sweep (:func:`evaluate_dp`), ``eval_sp_shards`` > 1
+splits each scoring chunk's frames over that many devices; the two
+exclude each other.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -244,45 +249,182 @@ def evaluate(
     return summary
 
 
-def load_weights(module: torch.nn.Module, ckpt_dir: str, name: str) -> bool:
+def _agent_on(agent, device):
+    """A shard's own agent: a shallow copy whose Brain is a replica on
+    ``device`` (the Brain itself there; evaluation only reads it), with its
+    own step count and its own copy of the host RNG, so shard threads share
+    no state that ``Agent.action`` writes."""
+    from ivosw_tpu_torch.parallel.mesh import replica_on
+
+    if agent is None:
+        return None
+    other = copy.copy(agent)
+    other.brain = replica_on(agent.brain, device)
+    other.device = device
+    other.host_rng = copy.deepcopy(agent.host_rng)
+    return other
+
+
+def evaluate_dp(
+    cfg: Config,
+    registry,
+    adapter_factory,
+    n_shards: Optional[int] = None,
+    devices=None,
+    agent=None,
+    assess_net=None,
+    subset: str = "val",
+    max_nb_interactions: int = 8,
+    report_save_dir: Optional[str] = None,
+    vos_name: Optional[str] = None,
+    log=None,
+    overwrite: bool = False,
+):
+    """Data-parallel interactive evaluation: sequences sharded over devices.
+
+    The (sequence, scribble) samples split round-robin into one shard per
+    device (``devices``: default every CUDA device; a device may repeat);
+    each shard runs :func:`evaluate` in its own thread with its own adapter
+    (``adapter_factory(device)``) and replicas of the Brain and AssessNet
+    on its device, and the rounds merge into exactly the curve a
+    single-device run over all samples gives (the per-sample RNG makes even
+    ``method=random`` shard-invariant). Threads on one card share its
+    default stream, so their work runs in launch order. Writes
+    ``summary.json`` (and each shard's report under ``shard{i}``); the
+    returned summary also holds the shards' report rows (``report``)."""
+    import concurrent.futures
+
+    from ivosw_tpu_torch.interact.recommend import data_parallel_shard
+    from ivosw_tpu_torch.parallel.mesh import replica_on
+
+    log = log or create_stream_logger("eval_dp")
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError("no CUDA device available; pass devices=['cpu', ...]")
+    devices = [resolve_device(d) for d in devices]
+    n = min(n_shards or len(devices), len(devices))
+    vos_name = vos_name or cfg.vos
+    metric = cfg.davis_interactive.metric
+    if report_save_dir is None:
+        report_save_dir = _default_report_dir(vos_name, cfg, overwrite)
+    os.makedirs(report_save_dir, exist_ok=True)
+
+    samples = [
+        (seq, i)
+        for seq in registry.subset(subset)
+        for i in range(1, registry.info(seq).num_scribbles + 1)
+    ]
+    shards = [samples[i::n] for i in range(n)]
+
+    def run_shard(i: int):
+        if not shards[i]:
+            return None
+        dev = devices[i]
+        with data_parallel_shard(), (
+            torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        ):
+            return evaluate(
+                cfg,
+                registry,
+                adapter_factory(dev),
+                agent=_agent_on(agent, dev),
+                assess_net=None if assess_net is None else replica_on(assess_net, dev),
+                subset=subset,
+                max_nb_interactions=max_nb_interactions,
+                report_save_dir=os.path.join(report_save_dir, f"shard{i}"),
+                vos_name=vos_name,
+                samples=shards[i],
+                log=log,
+                device=dev,
+            )
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=n) as pool:
+        results = [r for r in pool.map(run_shard, range(n)) if r is not None]
+
+    rows = [row for r in results for row in r["report"]]
+    rounds = sorted({row["interaction"] for row in rows})
+    curve = [
+        float(np.mean([row["value"] for row in rows if row["interaction"] == r]))
+        for r in rounds
+    ]
+    auc = auc_from_curve(curve)
+    log.info(f"# dp sweep ({n} shards): auc:{auc * 100:.4f}")
+    summary = {"auc": auc, "curve": {metric: curve}}
+    with open(os.path.join(report_save_dir, "summary.json"), "w") as fp:
+        json.dump(summary, fp)
+    summary["n_shards"] = n
+    summary["report"] = rows
+    return summary
+
+
+def load_weights(module: torch.nn.Module, ckpt_dir: str, name: str, convert=None) -> bool:
     """Load ``{ckpt_dir}/{name}`` (a state dict saved with ``torch.save``)
-    into ``module`` when the file exists; returns whether it did."""
+    into ``module`` when the file exists; returns whether it did.
+    ``convert(state_dict, path)`` maps another layout onto the module's
+    first (the reference's ``agent.pt`` and ``assess_net.pt``)."""
     path = os.path.join(ckpt_dir, name)
     if not os.path.exists(path):
         return False
-    module.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    module.load_state_dict(convert(state, path) if convert else state)
     return True
 
 
 def build_and_evaluate(cfg: Config, overwrite: bool = False, device=None):
-    """Config-driven wiring: registry + backbone + (agent, AssessNet)."""
-    if cfg.eval_dp_shards > 1 or cfg.eval_sp_shards > 1:
-        raise NotImplementedError(
-            "eval_dp_shards / eval_sp_shards > 1: the parallelism slice is not ported yet"
+    """Config-driven wiring: registry + backbone + (agent, AssessNet).
+
+    ``eval_dp_shards`` > 1 runs :func:`evaluate_dp` over as many CUDA
+    devices as there are, up to that count (copies of the CPU for a CPU
+    run); ``eval_sp_shards`` > 1 needs that many devices (checked before
+    anything runs). The two together raise ``ValueError``."""
+    if cfg.eval_dp_shards > 1 and cfg.eval_sp_shards > 1:
+        raise ValueError(
+            "eval_dp_shards and eval_sp_shards are exclusive: DP assigns one "
+            "sequence per device; SP shards one sequence's frames over them"
         )
+    from ivosw_tpu_torch.interact.recommend import _sp_mesh
     from ivosw_tpu_torch.data.registry import registry_from_config
     from ivosw_tpu_torch.eval.backbones import build_backbone
     from ivosw_tpu_torch.models.agent import Agent
     from ivosw_tpu_torch.models.assess import AssessNet, init_assess_net
     from ivosw_tpu_torch.models.fold import fold_assess_variables
+    from ivosw_tpu_torch.utils.torch_import import assess_state_dict, brain_state_dict
 
     device = resolve_device(device)
+    _sp_mesh(cfg.eval_sp_shards, device)
     registry = registry_from_config(cfg)
 
     agent = None
     assess_net = None
     if cfg.method == "ours":
         agent = Agent(cfg, device=device)
-        load_weights(agent.brain, cfg.ckpt_dir, "agent.pt")
+        load_weights(agent.brain, cfg.ckpt_dir, "agent.pt", brain_state_dict)
     if cfg.setting == "wild" and cfg.method in ("ours", "worst"):
         assess_net = init_assess_net(cfg.seed)
-        load_weights(assess_net, cfg.ckpt_dir, "assess_net.pt")
+        load_weights(assess_net, cfg.ckpt_dir, "assess_net.pt", assess_state_dict)
         if cfg.assess_net.fold_inference:
             folded = AssessNet(fold=True)
             folded.load_state_dict(fold_assess_variables(assess_net.state_dict()))
             assess_net = folded
         assess_net = assess_net.to(device).eval()
 
+    if cfg.eval_dp_shards > 1:
+        n = cfg.eval_dp_shards
+        devices = ([device] * n if device.type != "cuda" else
+                   [torch.device("cuda", i) for i in range(min(n, torch.cuda.device_count()))])
+        return evaluate_dp(
+            cfg,
+            registry,
+            lambda d: build_backbone(cfg, registry, d),
+            n_shards=n,
+            devices=devices,
+            agent=agent,
+            assess_net=assess_net,
+            max_nb_interactions=cfg.eval_rounds,
+            vos_name=cfg.vos,
+            overwrite=overwrite,
+        )
     return evaluate(
         cfg,
         registry,

@@ -7,12 +7,15 @@ setting×method dispatch ``recommend_frame``, the reward table with Eq. 3's
 wild setting :func:`predict_clip_quality` scores all T×O pairs on the
 device of the frames through :func:`ivosw_tpu_torch.models.assess.score_clip`,
 in fixed-size frame chunks (the padded tail is scored and dropped, as the
-JAX package's static-shape chunks are). The sequence-parallel mesh path
-comes with the parallelism slice.
+JAX package's static-shape chunks are). With ``cfg.eval_sp_shards`` > 1
+each chunk's frame axis is split over the devices of :func:`_sp_mesh`
+(sequence parallelism, :func:`ivosw_tpu_torch.parallel.mesh.frame_sharded_score_clip`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +26,55 @@ from ivosw_tpu_torch.device import check_on_device
 from ivosw_tpu_torch.models.assess import score_clip
 
 FRAME_CHUNK = 32
+
+# meshes of the sequence-parallel scoring path, cached per (shard count,
+# concrete devices) so the evaluation loop builds each once
+_SP_MESHES: Dict[tuple, object] = {}
+# set in the threads of a data-parallel evaluation (eval_agent.evaluate_dp)
+_dp_shard = threading.local()
+
+
+@contextlib.contextmanager
+def data_parallel_shard():
+    """Marks the calling thread as one shard of a data-parallel evaluation,
+    inside which :func:`_sp_mesh` refuses to build a mesh."""
+    _dp_shard.active = True
+    try:
+        yield
+    finally:
+        _dp_shard.active = False
+
+
+def _sp_mesh(n_shards: int, device):
+    """1-D ('data',) mesh of the sequence-parallel scoring path, or None
+    for ``n_shards`` ≤ 1. A CUDA run takes the first ``n_shards`` CUDA
+    devices (fewer raise ``ValueError``); a run the caller put on the CPU
+    takes ``n_shards`` copies of the CPU. Cached by the concrete devices.
+    Refused (``ValueError``) inside a data-parallel shard: that mesh would
+    span devices other shards own."""
+    n = int(n_shards)
+    if n <= 1:
+        return None
+    if getattr(_dp_shard, "active", False):
+        raise ValueError(
+            "sequence-parallel scoring (eval_sp_shards>1) cannot run inside a "
+            "data-parallel shard: the SP mesh spans devices other shards own"
+        )
+    device = torch.device(device)
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        if count < n:
+            raise ValueError(f"eval_sp_shards={n} but only {count} CUDA devices visible")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devices = [device] * n
+    key = (n, tuple(str(d) for d in devices))
+    mesh = _SP_MESHES.get(key)
+    if mesh is None:
+        from ivosw_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = _SP_MESHES[key] = make_mesh(("data",), devices=devices)
+    return mesh
 
 
 # ----------------------------------------------------------------- reward --
@@ -182,6 +234,7 @@ def predict_clip_quality(
     all_P,
     n_objects: int,
     chunk: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Predicted quality for every frame of a clip.
 
@@ -197,7 +250,10 @@ def predict_clip_quality(
 
     chunk: frames per scoring block; None → FRAME_CHUNK
     (cfg.assess_net.score_chunk). A tensor argument on another device than
-    the net's raises rather than being copied across."""
+    the net's raises rather than being copied across.
+
+    mesh: optional 1-D ('data',) mesh; each chunk's frame axis is then
+    split over its devices (:func:`ivosw_tpu_torch.parallel.mesh.frame_sharded_score_clip`)."""
     chunk = int(chunk) if chunk else FRAME_CHUNK
     device = next(assess_net.parameters()).device
     check_on_device(device, all_F=all_F, all_P=all_P)
@@ -215,7 +271,13 @@ def predict_clip_quality(
         if n < chunk:  # pad the tail to the chunk shape
             f_chunk = torch.cat([f_chunk, f_chunk.new_zeros((chunk - n,) + f_chunk.shape[1:])])
             p_chunk = torch.cat([p_chunk, p_chunk.new_zeros((chunk - n,) + p_chunk.shape[1:])])
-        s = score_clip(assess_net, f_chunk, p_chunk, obj_valid, obj_offset=1)
+        if mesh is not None:
+            from ivosw_tpu_torch.parallel.mesh import frame_sharded_score_clip
+
+            s = frame_sharded_score_clip(mesh, assess_net, f_chunk, p_chunk, obj_valid,
+                                         obj_offset=1)
+        else:
+            s = score_clip(assess_net, f_chunk, p_chunk, obj_valid, obj_offset=1)
         chunks.append(s[:n])
     scores = torch.cat(chunks, dim=0).float().cpu().numpy()
     return scores.mean(axis=1), scores
@@ -296,6 +358,8 @@ def recommend_frame(
                 all_P,
                 n_objects,
                 chunk=int(getattr(cfg.assess_net, "score_chunk", 0)) or None,
+                mesh=_sp_mesh(getattr(cfg, "eval_sp_shards", 1),
+                              next(assess_net.parameters()).device),
             )
             pred_quality = smooth_clip_quality(
                 pred_quality, int(getattr(cfg.assess_net, "smooth_quality", 1))

@@ -1,8 +1,8 @@
 """ROI crop kernels for Hopper and their plain versions.
 
 Four CUDA kernels, each beside its plain torch version. A wrapper launches
-its kernel for CUDA tensors and counts each launch in ``<wrapper>.launches``;
-for CPU tensors it computes the plain version instead (and counts nothing).
+its kernel for CUDA tensors and counts each launch in ``<wrapper>.launches``
+(under a lock, so concurrent shard threads count exactly); for CPU tensors it computes the plain version instead (and counts nothing).
 Any other device raises. None has a backward (nor have the TPU kernels).
 
 T×O pair crops (the scoring round). For each pair (t, o) the S×S bilinear
@@ -82,6 +82,7 @@ so it agrees with the plain version to summation order
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -170,6 +171,16 @@ def _check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
         lib.ivosw_cuda_error_string.restype = ctypes.c_char_p
         msg = lib.ivosw_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err}: {msg}")
+
+
+_launch_lock = threading.Lock()
+
+
+def _count_launch(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel, exact when threads (the
+    shards of a data-parallel evaluation) launch at once."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 def _load(source: str) -> ctypes.CDLL:
@@ -384,7 +395,7 @@ def roi_crop_pairs_fusedbox(
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _check_launch(lib, err, "roi_crop_pairs_fusedbox")
-    roi_crop_pairs_fusedbox.launches += 1
+    _count_launch(roi_crop_pairs_fusedbox)
     return (out, boxes) if return_boxes else out
 
 
@@ -445,7 +456,7 @@ def roi_crop_pairs(
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _check_launch(lib, err, "roi_crop_pairs")
-    roi_crop_pairs.launches += 1
+    _count_launch(roi_crop_pairs)
     return out
 
 
@@ -526,7 +537,7 @@ def roi_crop_pairs_premat(
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _check_launch(lib, err, "roi_crop_pairs_premat")
-    roi_crop_pairs_premat.launches += 1
+    _count_launch(roi_crop_pairs_premat)
     return out
 
 
@@ -604,7 +615,7 @@ def roi_crop(images: torch.Tensor, yxhw: torch.Tensor, out_size: int = ROI_S) ->
         yxhw.stride(1), out.data_ptr(), stream,
     )
     _check_launch(lib, err, "roi_crop")
-    roi_crop.launches += 1
+    _count_launch(roi_crop)
     return out
 
 

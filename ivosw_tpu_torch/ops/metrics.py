@@ -1,7 +1,7 @@
 """Segmentation quality metrics: batched Jaccard (J) and boundary F-measure.
 
 Counterpart of ``ivosw_tpu/ops/metrics.py`` with the same DAVIS-benchmark
-semantics and results, without cv2 and without the native library:
+semantics and results, without cv2:
 
 - J per (frame, object): |pred ∩ gt| / |pred ∪ gt|, with empty-∪-empty = 1.
 - F per (frame, object): boundary precision/recall where boundaries are
@@ -14,6 +14,12 @@ border). It runs on the bounding box of both boundary maps padded by the
 radius: every boundary pixel lies inside that box, so the matched counts
 are the same as on the full plane, and at 480p the box is a small part of
 the frame.
+
+:func:`batched_jaccard` and :func:`batched_f_measure` take ``backend``:
+``"auto"`` and ``"native"`` run the host C++ library
+(:mod:`ivosw_tpu_torch.ops.metrics_native`, built at first use; a failed
+build raises), ``"numpy"`` the plain version above, which the tests hold
+the library against.
 """
 
 from __future__ import annotations
@@ -111,6 +117,12 @@ def f_measure_single(
     return 2.0 * precision * recall / (precision + recall)
 
 
+def _use_native(backend: str) -> bool:
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"backend must be 'auto', 'native' or 'numpy', got {backend!r}")
+    return backend != "numpy"
+
+
 def _check_inputs(y_true, y_pred, nb_objects):
     y_true = np.asarray(y_true)
     y_pred = np.asarray(y_pred)
@@ -130,11 +142,17 @@ def batched_jaccard(
     y_pred: np.ndarray,
     average_over_objects: bool = True,
     nb_objects: int | None = None,
+    backend: str = "auto",
 ) -> np.ndarray:
     """Per-frame Jaccard over object ids 1..nb_objects.
 
     Returns [T] if averaged over objects else [T, nb_objects]."""
     y_true, y_pred, nb_objects = _check_inputs(y_true, y_pred, nb_objects)
+    if _use_native(backend):
+        from ivosw_tpu_torch.ops.metrics_native import batched_jaccard_native
+
+        jac = batched_jaccard_native(y_true, y_pred, nb_objects)
+        return jac.mean(axis=1) if average_over_objects else jac
     T = y_true.shape[0]
     jac = np.empty((T, nb_objects), dtype=np.float64)
     for j in range(nb_objects):
@@ -154,9 +172,15 @@ def batched_f_measure(
     average_over_objects: bool = True,
     nb_objects: int | None = None,
     bound_th: float = 0.008,
+    backend: str = "auto",
 ) -> np.ndarray:
     """Per-frame boundary F-measure over object ids 1..nb_objects."""
     y_true, y_pred, nb_objects = _check_inputs(y_true, y_pred, nb_objects)
+    if _use_native(backend):
+        from ivosw_tpu_torch.ops.metrics_native import batched_f_measure_native
+
+        f = batched_f_measure_native(y_true, y_pred, nb_objects, bound_th)
+        return f.mean(axis=1) if average_over_objects else f
     T = y_true.shape[0]
     f = np.empty((T, nb_objects), dtype=np.float64)
     for t in range(T):

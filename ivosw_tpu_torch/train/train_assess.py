@@ -112,14 +112,15 @@ def save_assess_checkpoint(net, ckpt_dir: str, name: str = ASSESS_CKPT) -> str:
 
 
 def build_net(cfg: Config, net, device: torch.device):
-    """The net to train: ``net`` as given (it must lie on ``device``), or a
-    seeded bf16 AssessNet moved there."""
-    if cfg.assess_net.imagenet_ckpt:
-        raise NotImplementedError(
-            "assess_net.imagenet_ckpt: the torchvision ResNet-50 importer is not "
-            "ported yet (ROADMAP §1 item 6); train from the seeded init or pass net="
-        )
+    """The net to train: ``net`` as given (it must lie on ``device``), else
+    a bf16 AssessNet moved there: with ``assess_net.imagenet_ckpt`` its stem
+    and trunk from that torchvision ``resnet50`` state dict (a missing or
+    unreadable file raises ``FileNotFoundError``), otherwise seeded."""
     if net is None:
+        if cfg.assess_net.imagenet_ckpt:
+            from ivosw_tpu_torch.utils.torch_import import init_assess_from_imagenet
+
+            return init_assess_from_imagenet(cfg.assess_net.imagenet_ckpt, cfg.seed).to(device)
         return init_assess_net(cfg.seed).to(device)
     check_on_device(device, net=net)
     return net

@@ -376,17 +376,38 @@ def vos_train_step(net, optimizer, batch, loss_fn: Callable) -> torch.Tensor:
     return loss.detach()
 
 
-def vos_train_step_dp(net, optimizer, batch, loss_fn: Callable) -> torch.Tensor:
-    """B windows on one device (every entry of ``batch`` has a leading
-    window axis): the gradients of the mean of their losses, accumulated
-    one window at a time, then one optimizer step. Returns the mean loss."""
+def vos_train_step_dp(replicas, optimizer, blocks, loss_fn: Callable) -> torch.Tensor:
+    """One optimizer step over B windows split into ``blocks``, one per
+    replica of the net (:func:`ivosw_tpu_torch.parallel.mesh.shard_batch`
+    and ``replicate``; every entry of a block has a leading window axis).
+    ``replicas[0]`` is the net that ``optimizer`` steps; the others first
+    take its parameters and buffers. Each replica accumulates the gradients
+    of its windows' losses / B, one window at a time, the gradients are
+    summed onto ``replicas[0]``, and one optimizer step runs there: the
+    gradients of the mean of the B losses, as the JAX package's vmapped
+    step. Returns the mean loss on the first replica's device."""
+    net = replicas[0]
+    with torch.no_grad():
+        for other in replicas[1:]:
+            for dst, src in zip(other.state_dict().values(), net.state_dict().values()):
+                dst.copy_(src)
     optimizer.zero_grad(set_to_none=True)
-    b = batch["img"].shape[0]
-    total = 0.0
-    for i in range(b):
-        loss = loss_fn(net, {k: v[i] for k, v in batch.items()}) / b
-        loss.backward()
-        total = total + loss.detach()
+    for other in replicas[1:]:
+        other.zero_grad(set_to_none=True)
+    b = sum(block["img"].shape[0] for block in blocks)
+    device = next(net.parameters()).device
+    total = torch.zeros((), device=device)
+    for replica, block in zip(replicas, blocks):
+        for i in range(block["img"].shape[0]):
+            loss = loss_fn(replica, {k: v[i] for k, v in block.items()}) / b
+            loss.backward()
+            total += loss.detach().to(device)
+    with torch.no_grad():
+        for other in replicas[1:]:
+            for p0, p in zip(net.parameters(), other.parameters()):
+                if p.grad is not None:
+                    g = p.grad.to(device)
+                    p0.grad = g if p0.grad is None else p0.grad.add_(g)
     optimizer.step()
     return total
 
@@ -437,12 +458,15 @@ def run(
     dp_windows: int = 0,
     device=None,
     timings: Optional[Dict[str, list]] = None,
+    mesh=None,
 ):
     """Train the family of ``cfg.vos`` on ``device`` (None: CUDA, raises
     without one) from ``params`` (a state dict; None: its seeded init).
 
-    ``dp_windows`` > 1 takes that many windows per step
-    (:func:`vos_train_step_dp`). The final weights go to
+    ``dp_windows`` > 1 takes that many windows per step, split over the
+    devices of ``mesh`` (1-D ('data',); default ``[device]``; ``device``
+    defaults to its first), one :func:`vos_train_step_dp` each;
+    ``dp_windows`` must be a multiple of the mesh's size. The final weights go to
     ``{ckpt_dir}/{family}.pt``; without ``resume_path`` the same file is
     also written every ``save_every`` steps. With ``resume_path`` a
     ``{params, opt_state, step}`` snapshot is written there every
@@ -458,6 +482,18 @@ def run(
     from ivosw_tpu_torch.data.registry import registry_from_config
     from ivosw_tpu_torch.interact.robot import ScribbleRobot
 
+    use_dp = dp_windows and dp_windows > 1
+    if use_dp:
+        from ivosw_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+
+        if mesh is None:
+            mesh = make_mesh(devices=[resolve_device(device)])
+        if dp_windows % mesh.shape["data"] != 0:
+            raise ValueError(
+                f"dp_windows={dp_windows} must be a multiple of the data-mesh "
+                f"size {mesh.shape['data']}"
+            )
+        device = mesh.axis_devices("data")[0] if device is None else device
     device = resolve_device(device)
     log = log or create_stream_logger("train_vos")
     rng = set_random_seed(cfg.seed)
@@ -470,8 +506,12 @@ def run(
     net.load_state_dict(params if params is not None else init_fn(cfg.seed))
     net.to(device).train()
     optimizer = make_vos_optimizer(net.parameters(), lr)
-    use_dp = dp_windows and dp_windows > 1
     per_step = dp_windows if use_dp else 1
+    if use_dp:
+        replicas = replicate(mesh, net)
+        if replicas[0] is not net:
+            raise ValueError(f"the net is on {device}, the mesh's first device is "
+                             f"{mesh.axis_devices('data')[0]}")
 
     stream = sample_windows(registry, sequences, rng, window, robot, round2_prob=round2_prob)
     start_step = 0
@@ -491,15 +531,17 @@ def run(
         windows = [next(stream) for _ in range(per_step)]
         t1 = time.perf_counter()
         if use_dp:
-            stacked = {k: np.stack([w[k] for w in windows]) for k in windows[0]}
-            batch = upload_window(stacked, device)
+            blocks = shard_batch(mesh, {k: np.stack([w[k] for w in windows])
+                                        for k in windows[0]})
         else:
             batch = upload_window(windows[0], device)
         if timings is not None and device.type == "cuda":
             torch.cuda.synchronize(device)
         t2 = time.perf_counter()
-        step_fn = vos_train_step_dp if use_dp else vos_train_step
-        losses.append(float(step_fn(net, optimizer, batch, loss_fn)))
+        if use_dp:
+            losses.append(float(vos_train_step_dp(replicas, optimizer, blocks, loss_fn)))
+        else:
+            losses.append(float(vos_train_step(net, optimizer, batch, loss_fn)))
         if timings is not None:
             t3 = time.perf_counter()
             for key, s in (("window_s", t1 - t0), ("upload_s", t2 - t1), ("step_s", t3 - t2)):

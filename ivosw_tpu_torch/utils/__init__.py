@@ -2,6 +2,8 @@ from ivosw_tpu_torch.utils.misc import (
     AverageMeter,
     PhaseTimer,
     create_stream_logger,
+    profile_trace,
+    rng_chain,
     set_random_seed,
 )
 
@@ -9,5 +11,7 @@ __all__ = [
     "AverageMeter",
     "PhaseTimer",
     "create_stream_logger",
+    "profile_trace",
+    "rng_chain",
     "set_random_seed",
 ]

@@ -8,9 +8,12 @@ checkpoint named ``N`` is two files in ``ckpt_dir``:
 - ``N.train.pt``: ``{"optimizer": Adam state dict, "steps_done": int}``.
 
 Epoch snapshots of an in-flight training run are ``agent_epoch_N``; the
-plain ``agent`` is written only when the run completes. The JAX package's
-own checkpoints (``agent.orbax``) and the reference's ``agent.pt`` layout
-are not read here: a file in another layout fails in ``load_state_dict``.
+plain ``agent`` is written only when the run completes. A plain
+``agent.pt`` in the reference's layout (its released weights) is converted
+(:func:`ivosw_tpu_torch.utils.torch_import.brain_state_dict`); epoch
+snapshots have no such fallback, as in the JAX package. A file in neither
+layout raises. The JAX package's own checkpoints (``agent.orbax``) are not
+read here.
 """
 
 from __future__ import annotations
@@ -44,11 +47,17 @@ def save_agent_checkpoint(agent, ckpt_dir: str, epoch: Optional[int] = None) -> 
 
 
 def load_agent_params(ckpt_dir: str, name: str = "agent", map_location="cpu"):
-    """The Brain state dict of ``{ckpt_dir}/{name}.pt``, or None."""
+    """The Brain state dict of ``{ckpt_dir}/{name}.pt``, or None; the plain
+    ``agent`` may be in the reference's layout."""
     path = _paths(ckpt_dir, name)[0]
     if not os.path.exists(path):
         return None
-    return torch.load(path, map_location=map_location, weights_only=True)
+    state = torch.load(path, map_location=map_location, weights_only=True)
+    if name == "agent":
+        from ivosw_tpu_torch.utils.torch_import import brain_state_dict
+
+        state = brain_state_dict(state, path)
+    return state
 
 
 def latest_agent_epoch(ckpt_dir: str) -> Optional[int]:
@@ -83,8 +92,8 @@ def restore_agent(agent, ckpt_dir: str, name: str = "agent") -> bool:
     """Bring back the policy Brain, the optimizer state and ``steps_done``
     of checkpoint ``name``, onto the agent's device; the target becomes a
     copy of the policy. Returns False when ``{name}.pt`` does not exist. A
-    Brain saved without its training state (only ``{name}.pt``) restores
-    the Brain and the target alone."""
+    Brain saved without its training state (only ``{name}.pt``, or the
+    reference's ``agent.pt``) restores the Brain and the target alone."""
     state = load_agent_params(ckpt_dir, name, map_location=agent.device)
     if state is None:
         return False

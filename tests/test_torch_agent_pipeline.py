@@ -241,7 +241,7 @@ def test_restore_without_checkpoint_and_foreign_layout(tmp_path):
     agent = Agent(Config(seed=0), device="cpu")
     assert not restore_agent(agent, str(tmp_path))
     assert not restore_agent(agent, str(tmp_path), name="agent_epoch_3")
-    # the reference's own agent.pt layout is not read: it fails loudly
+    # a file in neither the port's nor the reference's layout fails loudly
     torch.save({"fc1.weight": torch.zeros(128, 2)}, tmp_path / "agent.pt")
     with pytest.raises(RuntimeError, match="state_dict"):
         restore_agent(agent, str(tmp_path))

@@ -3,6 +3,7 @@ JAX package: exact equality throughout: scribbles, metrics, config, demo
 clips and whole evaluation sessions that need no AssessNet."""
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -160,6 +161,10 @@ def test_cli_runs_on_the_demo_registry_and_guards_results(tmp_path, monkeypatch)
     assert (tmp_path / "results/fake/wild/demo/random/summary.json").exists()
     with pytest.raises(FileExistsError):
         main(argv)
-    # the config's default dataset=davis reads data/DAVIS under the cwd: none here
-    with pytest.raises(FileNotFoundError, match="ImageSets"):
-        main(["vos=fake", "--cpu"])
+    # the config's default dataset=davis reads data/DAVIS under the cwd: none
+    # here, so the registry is empty and the run evaluates nothing, as the JAX
+    # package's CLI does (its summary: an empty curve, AUC 0)
+    empty = main(["vos=fake", "--cpu"])
+    assert empty["curve"] == {"J_AND_F": []} and empty["auc"] == 0.0
+    with open(tmp_path / "results/fake/wild/davis/ours/summary.json") as fp:
+        assert json.load(fp) == {"auc": 0.0, "curve": {"J_AND_F": []}}

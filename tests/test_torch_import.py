@@ -64,13 +64,27 @@ def test_every_module_imports_with_jax_blocked():
     ],
 )
 def test_no_file_names_the_jax_package(pattern):
-    """Grep every source of the port and chip_smoke.py."""
+    """Grep every source of the port (CUDA and host C++ included) and
+    chip_smoke.py."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT):
-        files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu"))]
+        files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu", ".cpp"))]
     rx = re.compile(pattern, re.MULTILINE)
     hits = [f for f in files if rx.search(open(f).read())]
     assert not hits, hits
+
+
+@pytest.mark.parametrize("module", [
+    "ivosw_tpu_torch.utils.torch_import",
+    "ivosw_tpu_torch.ops.metrics_native",
+    "ivosw_tpu_torch.parallel.mesh",
+    "ivosw_tpu_torch.utils.visualize",
+])
+def test_the_last_slice_modules_are_walked(module):
+    """The modules of the last slice are among those the checks above
+    import with JAX blocked and grep; their C++ source is grepped too."""
+    assert module in _port_modules()
+    assert os.path.exists(os.path.join(PORT, "csrc", "host", "metrics.cpp"))
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
@@ -98,7 +112,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 def test_training_entry_points_refuse_cpu_fallback(monkeypatch):
     """The trainers resolve their device like every entry point: without a
-    GPU they raise; an ImageNet trunk is refused until its slice lands."""
+    GPU they raise; an ImageNet trunk that is not there raises
+    FileNotFoundError (the JAX package's message)."""
     from ivosw_tpu_torch.core.config import Config
     from ivosw_tpu_torch.data.registry import SequenceRegistry
     from ivosw_tpu_torch.train import pretrain_assess, train_assess
@@ -111,7 +126,7 @@ def test_training_entry_points_refuse_cpu_fallback(monkeypatch):
         train_assess.run(Config(), registry=reg, save_result_dir="unused")
     cfg = Config()
     cfg.assess_net.imagenet_ckpt = "resnet50.pth"
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError, match="'resnet50.pth' is not a readable torchvision"):
         pretrain_assess.run(cfg, registry=reg, num_steps=1, batch_size=1, device="cpu")
 
 

@@ -99,8 +99,11 @@ def test_registry_from_config(mini_davis, dataset):
 
 
 def test_from_davis_root_without_a_tree_raises(tmp_path):
-    with pytest.raises(FileNotFoundError, match="ImageSets"):
-        SequenceRegistry.from_davis_root(str(tmp_path))
+    """A root without ImageSets/2017/{train,val}.txt no longer raises: it
+    gives an empty registry, as the JAX package's does."""
+    ours, theirs = _open("davis_root", str(tmp_path))
+    assert ours.subset("val") == theirs.subset("val") == []
+    assert_registries_equal(ours, theirs)
 
 
 def test_eval_cli_over_a_davis_tree_writes_the_jax_summary(tmp_path, monkeypatch, mini_davis):

@@ -178,8 +178,8 @@ def test_dp_step_matches_jax():
     net = cases.port_net("tapnet", params)
     before = {n: p.detach().clone() for n, p in net.named_parameters()}
     batch = tv.upload_window({k: np.stack([ours[i][k] for i in pick]) for k in ours[0]}, "cpu")
-    loss = float(tv.vos_train_step_dp(net, tv.make_vos_optimizer(net.parameters(), cases.LR),
-                                      batch, tv.tapnet_window_loss))
+    loss = float(tv.vos_train_step_dp([net], tv.make_vos_optimizer(net.parameters(), cases.LR),
+                                      [batch], tv.tapnet_window_loss))
     share = cases.assert_step_close(before, dict(net.named_parameters()),
                                     cases.CONVERT["tapnet"](cases.numpy_tree(p1)))
     print("dp step", loss, float(jloss), "far share", share)
